@@ -386,7 +386,8 @@ cudaError_t launch(const void* f0, const void* f1, const void* c0,
                    const void* c1, const void* m0, const void* m1, void* nn0,
                    void* v0, void* lse_r, void* nn1, void* v1, void* lse_c,
                    void* part_a, void* part_b, void* part_i, void* cc1, int B,
-                   int N, int M, float scale, cudaStream_t stream) {
+                   int N, int M, float scale, cudaStream_t stream,
+                   int* launched) {
   const int RT = (N + kRows - 1) / kRows;
   const dim3 rows(RT, B);
   const int cols = (B * M + 255) / 256;
@@ -399,12 +400,14 @@ cudaError_t launch(const void* f0, const void* f1, const void* c0,
       static_cast<float*>(part_a), static_cast<float*>(part_b), N, M, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  ++*launched;
   combine_lse<<<cols, 256, 0, stream>>>(
       static_cast<const float*>(part_a), static_cast<const float*>(part_b),
       static_cast<const float*>(c1), um1, static_cast<float*>(lse_c),
       static_cast<float*>(cc1), B, RT, M);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  ++*launched;
   // part_a is free again once combine_lse has run (same stream): it holds
   // the pass-C column bests.
   pass_argmax<DF><<<rows, kWarps * 32, 0, stream>>>(
@@ -415,10 +418,14 @@ cudaError_t launch(const void* f0, const void* f1, const void* c0,
       2.0f * scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  ++*launched;
   combine_argmax<<<cols, 256, 0, stream>>>(
       static_cast<const float*>(part_a), static_cast<const int*>(part_i),
       static_cast<int*>(nn1), static_cast<float*>(v1), B, RT, M);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ++*launched;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -429,14 +436,16 @@ extern "C" int gl_assignment_fwd(const void* f0, const void* f1,
                                  void* v0, void* lse_r, void* nn1, void* v1,
                                  void* lse_c, void* part_a, void* part_b,
                                  void* part_i, void* cc1, int B, int N, int M,
-                                 int Df, float scale, void* stream) {
+                                 int Df, float scale, void* stream,
+                                 int* launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *launched = 0;
   switch (Df) {
 #define GL_CASE(D)                                                         \
   case D:                                                                  \
     return (int)launch<D>(f0, f1, c0, c1, m0, m1, nn0, v0, lse_r, nn1, v1, \
                           lse_c, part_a, part_b, part_i, cc1, B, N, M,     \
-                          scale, s);
+                          scale, s, launched);
     GL_CASE(64)
     GL_CASE(128)
     GL_CASE(256)

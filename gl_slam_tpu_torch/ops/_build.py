@@ -8,9 +8,10 @@ library name carries a hash of the source and flags, so an edited source is
 rebuilt and a stale library is never loaded. A missing `nvcc` or a failed
 build raises: there is no fallback for a CUDA tensor.
 
-Launch counters: every kernel wrapper adds one to `LAUNCHES[name]` where it
-launches its kernel and nowhere else, so a run can show that the main path
-went through the kernels (chip_smoke.py resets and reads them).
+Launch counters: every kernel wrapper adds to `LAUNCHES[name]` the number of
+kernels it launched (attention 1 per call, assignment 4), where it launches
+them and nowhere else, so a run can show that the main path went through the
+kernels (chip_smoke.py resets and reads them).
 """
 
 from __future__ import annotations

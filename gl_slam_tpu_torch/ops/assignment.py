@@ -62,9 +62,10 @@ def fused_reductions_plain(f0, f1, c0, c1, m0, m1, scale: float):
 
 
 def fused_reductions_cuda(f0, f1, c0, c1, m0, m1, scale: float):
-    """The CUDA kernel (four launches: row/column partials, column combine,
-    argmax partials, argmax combine). bf16 features, f32 c0/c1, bool masks,
-    all contiguous on one device; feature dim in {64, 128, 256}."""
+    """The CUDA kernel: four launches (row/column partials, column combine,
+    argmax partials, argmax combine), each added to the launch count. bf16
+    features, f32 c0/c1, bool masks, all contiguous on one device; feature
+    dim in {64, 128, 256}."""
     lead = f0.shape[:-2]
     N, Df = f0.shape[-2:]
     M = f1.shape[-2]
@@ -113,13 +114,15 @@ def fused_reductions_cuda(f0, f1, c0, c1, m0, m1, scale: float):
     fn = lib.gl_assignment_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 \
-        + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     P = _build.ptr
+    launched = ctypes.c_int(0)
     err = fn(P(f0), P(f1), P(c0), P(c1), P(m0.view(torch.uint8)),
              P(m1.view(torch.uint8)), P(nn0), P(v0), P(lse_r), P(nn1),
              P(v1), P(lse_c), P(part_a), P(part_b), P(part_i), P(cc1),
-             B, N, M, Df, float(scale), _build.stream_of(f0))
-    _build.LAUNCHES["assignment"] += 1
+             B, N, M, Df, float(scale), _build.stream_of(f0),
+             ctypes.byref(launched))
+    _build.LAUNCHES["assignment"] += launched.value
     _build.check(err, "assignment")
     return nn0, v0, lse_r, nn1, v1, lse_c
 

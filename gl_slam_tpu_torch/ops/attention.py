@@ -33,6 +33,29 @@ def attention_plain(q, k, v, mask_k, scale: float):
     return torch.matmul(attn.to(v.dtype).float(), v.float())
 
 
+def attention_tolerance(q, k, v, mask_k, scale: float):
+    """Elementwise bound on |attention_cuda - attention_plain|, same shape as
+    the output.
+
+    With S = sum_j p_ij |v_jd| (p the plain softmax):
+      - both versions round each weight to bf16 once (the kernel before the
+        1/sum, the plain version after it), each to 2^-8 relative: 2^-7 S;
+      - the logits are dh-term f32 dot products summed in another order
+        (tensor-core adds counted at 2^-22 each): |logit error| <= delta_i =
+        dh 2^-22 scale max_j sum_d |q_id k_jd|, which moves each normalised
+        weight by <= 2 delta_i relative;
+      - the sum and p.v run over Nk f32 terms: Nk 2^-22 S.
+    """
+    dh, Nk = q.shape[-1], k.shape[-2]
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = torch.where(mask_k[..., None, None, :], logits, _NEG)
+    S = torch.matmul(torch.softmax(logits, dim=-1), v.float().abs())
+    del logits
+    dot = torch.matmul(q.float().abs(), k.float().abs().transpose(-1, -2))
+    delta = dh * 2.0 ** -22 * scale * dot.amax(-1, keepdim=True)
+    return (2.0 ** -7 + 2 * delta + Nk * 2.0 ** -22) * S + 1e-6
+
+
 def attention_cuda(q, k, v, mask_k, scale: float):
     """The CUDA kernel. bf16 q/k/v, contiguous, head dim in {32, 64, 128}."""
     lead = q.shape[:-3]

@@ -22,9 +22,6 @@ import torch
 
 from ..config import SLAMConfig
 from ..device import resolve_device
-from ..models.lightglue import normalize_keypoints
-from ..ops import match as match_ops
-from ..ops.assignment import fused_assignment
 from . import frontend, fused
 
 
@@ -57,6 +54,7 @@ class ChunkedPipeline:
         self.chunk_fn = fused.build_chunk_fn(cfg, sp_net, lg_net, self.K,
                                              chunk)
         self.extract_fn = fused.build_extract_fn(cfg, sp_net)
+        self.match_fn = fused.build_matcher(cfg, lg_net)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._draws = draws
         self.state: Optional[frontend.TrackState] = None
@@ -90,14 +88,8 @@ class ChunkedPipeline:
             frame_idx0, dtype=torch.int32, device=dev))
         f1 = frontend.FrameFeatures(kp_b[1], d_b[1], v_b[1], torch.tensor(
             frame_idx0 + 1, dtype=torch.int32, device=dev))
-        H, W = cfg.frontend.image_height, cfg.frontend.image_width
-        ff0, ff1, z0, z1 = self.lg_net(
-            f0.desc, f1.desc, normalize_keypoints(f0.kpts, H, W),
-            normalize_keypoints(f1.kpts, H, W), f0.valid, f1.valid,
-            return_features=True)
-        mo = fused_assignment(ff0, ff1, z0, z1, f0.valid, f1.valid,
-                              1.0 / float(self.lg_net.dim) ** 0.5, 0.0)
-        m = match_ops.MatchResult(matches0=mo.matches0, mscores0=mo.mscores0)
+        m = self.match_fn(f0.kpts, f0.desc, f0.valid, f1.kpts, f1.desc,
+                          f1.valid)
         st = frontend.init_track_state(cfg, device=dev)
         self.state, out = frontend.bootstrap_step(
             cfg, self.K, st, f0, f1,

@@ -36,10 +36,10 @@ def test_attention_kernel_matches_plain(cuda_device, lead, Nq, Nk, dh):
     out = t_attn.attention(q, k, v, mask, dh ** -0.5)
     assert _build.LAUNCHES["attention"] == before + 1
     ref = t_attn.attention_plain(q, k, v, mask, dh ** -0.5)
-    # p rounds to bf16 before (kernel) vs after (plain) the 1/sum, each
-    # weight to 2^-9 relative: outputs differ by <= 2^-8 max|v|.
-    assert float((out - ref).abs().max()) <= 2 ** -8 * float(
-        v.float().abs().max())
+    # Elementwise bound from the roundings of the two versions (see
+    # attention_tolerance): 2^-7 sum_j p_ij |v_jd| plus f32 terms.
+    tol = t_attn.attention_tolerance(q, k, v, mask, dh ** -0.5)
+    assert bool(((out - ref).abs() <= tol).all())
 
 
 def _asg_inputs(rng, B, N, M, Df):
@@ -70,7 +70,7 @@ def test_assignment_kernel_matches_plain(cuda_device, B, N, M, Df):
     c1 = torch.nn.functional.logsigmoid(z1)
     before = _build.LAUNCHES["assignment"]
     got = t_asg.fused_reductions(f0, f1, c0, c1, m0, m1, Df ** -0.5)
-    assert _build.LAUNCHES["assignment"] == before + 1
+    assert _build.LAUNCHES["assignment"] == before + 4   # kernels per call
     ref = t_asg.fused_reductions_plain(f0, f1, c0, c1, m0, m1, Df ** -0.5)
     names = ("nn0", "v0", "lse_r", "nn1", "v1", "lse_c")
     for name, g_, r_ in zip(names, got, ref):

@@ -19,6 +19,10 @@ from gl_slam_tpu_torch.geometry import essential as t_ess
 from gl_slam_tpu_torch.ops.select import topk_stable
 from gl_slam_tpu_torch.slam import pose_ba as t_pose
 
+# Small shapes: one ATen thread per test worker keeps the parallel suite
+# from oversubscribing the cores.
+torch.set_num_threads(1)
+
 
 def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]

@@ -22,6 +22,10 @@ from gl_slam_tpu_torch.ops import _build
 from gl_slam_tpu_torch.ops import assignment as t_asg
 from gl_slam_tpu_torch.ops import attention as t_attn
 
+# Small shapes: one ATen thread per test worker keeps the parallel suite
+# from oversubscribing the cores.
+torch.set_num_threads(1)
+
 # Float32 on both sides; the sums run in other orders (XLA vs ATen), so
 # values agree to float32 rounding of O(1)-O(10) quantities.
 TOL = 1e-4
@@ -63,7 +67,8 @@ def test_attention_plain_matches_jax(lead, Nq, Nk):
 def test_attention_plain_bf16_rounds_p_like_jax():
     """bf16 operands: p is rounded to bf16 before the product with v on
     both sides; a p on a rounding boundary may round the other way under
-    another summation order, so the tolerance is 2^-8 of max|v|."""
+    another summation order, which attention_tolerance's 2^-7 sum_j p_ij
+    |v_jd| term bounds elementwise."""
     rng = np.random.default_rng(1)
     q, k, v, mask = _attn_inputs(rng, (), 2, 48, 40, 32)
     bf = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
@@ -72,8 +77,40 @@ def test_attention_plain_bf16_rounds_p_like_jax():
         torch.bfloat16) for a in bf]
     got = t_attn.attention(*tq, torch.from_numpy(mask), 0.125)
     assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), ref,
-                               atol=2 ** -8 * np.abs(v).max(), rtol=0)
+    tol = t_attn.attention_tolerance(*tq, torch.from_numpy(mask), 0.125)
+    assert bool(((got - torch.from_numpy(ref)).abs() <= tol).all())
+
+
+def _attn_kernel_order(q, k, v, mask, scale):
+    """The CUDA kernel's arithmetic in plain torch: exp(l - max) rounded to
+    bf16 before the product with v, divided by the sum of the unrounded
+    exponentials afterwards."""
+    lg = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    lg = torch.where(mask[..., None, None, :], lg, -1e9)
+    e = torch.exp(lg - lg.amax(-1, keepdim=True))
+    return torch.matmul(e.to(torch.bfloat16).float(), v.float()) \
+        / e.sum(-1, keepdim=True)
+
+
+def test_attention_tolerance_covers_kernel_rounding_and_no_more():
+    """attention_tolerance bounds the gap between the kernel's rounding order
+    and the plain version's, and a dropped key tile lies far outside it."""
+    g = torch.Generator().manual_seed(6)
+    k, v = (torch.randn(3, 2, 200, 64, generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    q = (0.75 * k.float()[..., (torch.arange(96) * 97) % 200, :]).to(
+        torch.bfloat16)                  # each query aims at one key
+    mask = torch.rand(3, 200, generator=g) < 0.8
+    mask[1] = False                      # every key masked
+    ref = t_attn.attention_plain(q, k, v, mask, 0.125)
+    tol = t_attn.attention_tolerance(q, k, v, mask, 0.125)
+    assert bool(((_attn_kernel_order(q, k, v, mask, 0.125) - ref).abs()
+                 <= tol).all())
+    assert float(ref.abs().median() / tol.median()) >= 10
+    dropped = mask.clone()
+    dropped[:, 64:128] = False           # one 64-key tile lost
+    gap = (_attn_kernel_order(q, k, v, dropped, 0.125) - ref).abs() / tol
+    assert float(gap.max()) > 10
 
 
 def _asg_inputs(rng, B, N, M, Df):

@@ -29,6 +29,10 @@ from gl_slam_tpu_torch.models.superpoint import (SuperPointNet,
 from gl_slam_tpu_torch.ops import nms as t_nms
 from gl_slam_tpu_torch.train import e2e as t_e2e
 
+# Small shapes: one ATen thread per test worker keeps the parallel suite
+# from oversubscribing the cores.
+torch.set_num_threads(1)
+
 CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
 D = t_cfg.TINY_DESC_DIM
 

@@ -27,6 +27,10 @@ from gl_slam_tpu_torch import config as t_cfg
 from gl_slam_tpu_torch.slam.chunk_driver import ChunkedPipeline
 from gl_slam_tpu_torch.train import e2e as t_e2e
 
+# Small shapes: one ATen thread per test worker keeps the parallel suite
+# from oversubscribing the cores.
+torch.set_num_threads(1)
+
 CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
 H, W, N, NF, CHUNK = 240, 320, 128, 18, 8
 
