@@ -9,14 +9,20 @@ Phases (any failure exits non-zero and prints no result line):
      limit;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the tracker gives it (ragged masks, a fully masked row/column,
-     constructed ties) within an elementwise error bound, and time kernel,
-     plain version, a PyTorch library yardstick and the roofline bound;
+     constructed ties, plateaus across tile and image borders, a real
+     detector heatmap) within an elementwise error bound (attention,
+     assignment) or bit for bit (NMS), and time kernel, plain version, a
+     PyTorch library yardstick and the roofline bound;
   3. run the flagship-width chunked tracker (376x1241, N=2048, D=256, a
      9-layer 2-head LightGlue on all three per-frame passes, committed
-     weights) over a bootstrap plus two chunks of 8 frames of a rendered
-     scene, with BA and loop closing off and centroid sub-pixel refinement;
-     check poses, matches, ATE and that the launch counters equal what the
-     path implies.
+     weights, extraction through the NMS kernel) over a bootstrap plus
+     three chunks of 8 frames of a rendered scene, with a window BA pass,
+     slot recycling and the health check every 8 frames, loop closing off
+     and centroid sub-pixel refinement; check poses, matches, ATE, the BA
+     and recovery counts and that the launch counters equal what the path
+     implies;
+  4. run the same tracker with BA off over the bootstrap plus one chunk of
+     the same frames, with its own launch-count check.
 The line before the last is the `kernels` JSON; the last line is the
 device JSON. Details go to chiprun_out/chip_smoke.json.
 """
@@ -34,16 +40,34 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Roofline of one H100 SXM at its published peaks (NVIDIA data sheet).
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12          # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 CHUNK = 8
-N_FRAMES = 2 + 2 * CHUNK
+N_CHUNKS = 3
+N_FRAMES = 2 + N_CHUNKS * CHUNK
+N_FRAMES_NO_BA = 2 + CHUNK      # the earlier path (BA off), at a cut depth
+NMS_RADIUS = 4
 # Kernel shapes on the flagship path: N keypoints per frame, M synthetic
 # re-observation points, 2 heads of 128 dims, 256-d final projections.
 N_KPTS, M_REOBS, HEADS, HEAD_DIM, FEAT_DIM = 2048, 1024, 2, 128, 256
 # csrc/assignment.cu launches four kernels per call (row pass, column
-# combine, argmax pass, argmax combine); attention.cu launches one.
+# combine, argmax pass, argmax combine); attention.cu and nms.cu launch one.
 ASSIGN_KERNELS_PER_CALL = 4
+
+
+def expected_launches(n_chunks):
+    """Kernel launches of a bootstrap plus `n_chunks` chunks. Matcher passes:
+    the bootstrap's and each chunk prologue's (18 attention calls: 9 layers
+    x self + cross), and two per frame (72: 9 layers x 2 passes x (2 self +
+    2 cross, per set at its own size)); one assignment call per matcher
+    pass; one fused NMS launch per extraction call (bootstrap and each
+    chunk)."""
+    tracked = n_chunks * CHUNK
+    return {"attention": 18 + n_chunks * 18 + tracked * 72,
+            "assignment": ASSIGN_KERNELS_PER_CALL * (1 + n_chunks
+                                                     + tracked * 2),
+            "nms": 1 + n_chunks}
 
 
 class Failure(Exception):
@@ -78,8 +102,8 @@ def time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def bound(flops, nbytes):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -285,12 +309,93 @@ def check_assignment(torch, gen, dev, report):
     return worst
 
 
+def nms_cases(torch, gen, dev, cfg, sp, stack):
+    """(name, heat (B, 376, 1248) f32) at the two batch sizes the tracker
+    extracts at (8 per chunk, 2 at the bootstrap): a quantised random map
+    (ties everywhere) with exact zeros and plateaus that cross the kernel's
+    32 x 64 tile borders and touch the image border, and the flagship
+    detector's own heatmap of rendered frames."""
+    from gl_slam_tpu_torch.slam import fused
+    H8 = cfg.frontend.image_height + (-cfg.frontend.image_height) % 8
+    W8 = cfg.frontend.image_width + (-cfg.frontend.image_width) % 8
+    cases = []
+    for B in (CHUNK, 2):
+        heat = torch.rand(B, H8, W8, generator=gen, device=dev)
+        heat = torch.round(heat * 64) / 64
+        heat[torch.rand(B, H8, W8, generator=gen, device=dev) < 0.3] = 0.0
+        heat[0, 28:37, 50:80] = 1.97           # across a tile corner
+        heat[0, 120:136, 600:700] = 1.98       # across several tiles
+        heat[0, :5, :7] = 1.99                 # image corner
+        heat[-1, H8 - 3:, W8 - 40:] = 1.98     # bottom-right border
+        heat[-1, H8 // 2, :] = 1.96            # a full row
+        heat[-1, :, 64] = 1.95                 # a full column on a tile edge
+        cases.append((f"random {B}x{H8}x{W8}", heat.contiguous()))
+        with torch.no_grad():
+            real, _ = fused.detector_heatmap(
+                cfg, sp, torch.from_numpy(stack[:B]).to(dev))
+        cases.append((f"detector {B}x{H8}x{W8}", real.contiguous()))
+    return cases
+
+
+def check_nms(torch, gen, dev, report, cfg, sp, stack):
+    from gl_slam_tpu_torch.ops import nms as NM
+    F = torch.nn.functional
+    r, k = NMS_RADIUS, 2 * NMS_RADIUS + 1
+    fr = cfg.frontend
+    worst = 0.0
+    for name, heat in nms_cases(torch, gen, dev, cfg, sp, stack):
+        out = NM.nms_cuda(heat, r)
+        ref = NM.nms_plain(heat, r)
+        torch.cuda.synchronize()
+        n_diff = int((out != ref).sum())
+        err = float((out - ref).abs().max())
+        worst = max(worst, err)
+        # max and comparisons are exact: no tolerance.
+        check(torch.equal(out, ref), f"nms {name}: {n_diff} pixels differ "
+              f"from the plain version")
+        survivors = int((out > 0).sum())
+        check(survivors > 0, f"nms {name}: no survivor")
+        # Detection through the kernel (on the card) and through the plain
+        # version (the same map on the CPU): equal keypoints.
+        got = NM.detect_keypoints(heat, fr.max_keypoints, fr.score_threshold,
+                                  r)
+        want = NM.detect_keypoints(heat.cpu(), fr.max_keypoints,
+                                   fr.score_threshold, r)
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+              f"nms {name}: keypoints through the kernel differ from those "
+              f"through the plain version")
+        B, H, W = heat.shape
+        # Window max: 2 x 2r compares per pixel (row then column pass); the
+        # tie-break: 2 x 2r + 2r flag tests.
+        flops = 10.0 * r * heat.numel()
+        nbytes = 2 * 4 * heat.numel()
+        row = dict(
+            shape=name, max_abs_err=err,
+            pixels_differing=n_diff, survivors=survivors,
+            keypoints=int(got[2].sum()),
+            ms=time_ms(lambda: NM.nms_cuda(heat, r)),
+            plain_ms=time_ms(lambda: NM.nms_plain(heat, r), reps=5),
+            library_ms=time_ms(lambda: F.max_pool2d(
+                heat[:, None], k, stride=1, padding=r)))
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes,
+                                                 PEAK_F32_FLOPS)
+        report.append(row)
+        print(f"  nms {name}: equal, {survivors} survivors, "
+              f"{row['keypoints']} keypoints; kernel {row['ms']:.4f} ms plain "
+              f"{row['plain_ms']:.4f} ms max_pool2d {row['library_ms']:.4f} "
+              f"ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+              flush=True)
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the flagship-width slice
 
-STAGES = ("extract", "prologue.match", "prologue.essential",
+STAGES = ("extract", "extract.nms", "prologue.match", "prologue.essential",
           "track.reobserve_window", "track.reobserve_covis", "track.pose_lm",
-          "track.insert_keyframe")
+          "track.insert_keyframe", "backend.ba", "backend.recycle")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
 
 
 def profile_run(torch, once):
@@ -307,15 +412,24 @@ def profile_run(torch, once):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_us, n_kernels, by_name, launches = 0.0, 0, {}, 0
-    stages = {}
+    stages, ba_ranges, syncs = {}, [], []
     for e in prof.events():
         us = e.time_range.elapsed_us()
         if e.is_user_annotation:
-            if e.name in STAGES and e.device_type != \
-                    torch.autograd.DeviceType.CUDA:
-                st = stages.setdefault(e.name, dict(host_ms=0.0, calls=0))
+            if e.name not in STAGES:
+                continue
+            st = stages.setdefault(e.name, dict(host_ms=0.0, calls=0,
+                                                device_span_ms=0.0))
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                # first kernel start to last kernel end inside the range
+                st["device_span_ms"] += us / 1e3
+            else:
                 st["host_ms"] += us / 1e3
                 st["calls"] += 1
+                if e.name == "backend.ba":
+                    ba_ranges.append((e.time_range.start, e.time_range.end))
+        elif e.name in SYNC_CALLS:
+            syncs.append(e.time_range.start)
         elif e.device_type == torch.autograd.DeviceType.CUDA:
             busy_us += us
             n_kernels += 1
@@ -329,37 +443,45 @@ def profile_run(torch, once):
     # Busy and wall time of this one run. The profiler slows the host, so
     # this overstates the idle share of an unprofiled run.
     idle = 1.0 - busy_us / 1e6 / wall
+    # Host synchronisations: all of the run, and those issued inside a BA
+    # pass (the LM loop must need none).
+    ba_syncs = sum(1 for t in syncs
+                   if any(a <= t <= b for a, b in ba_ranges))
     out = dict(profiled_wall_s=wall, device_busy_s=busy_us / 1e6,
                device_idle_share=idle, kernels=n_kernels,
                launch_calls=launches, stages=stages,
+               sync_calls=len(syncs), sync_calls_in_ba=ba_syncs,
                top_kernels=[dict(name=k, ms=v[0] / 1e3, count=v[1])
                             for k, v in top])
     print(f"  profiled run: {wall:.3f} s wall, {n_kernels} device "
           f"activities, {launches} kernel launch calls, device "
           f"busy {busy_us / 1e6:.3f} s, idle share {idle:.3f}", flush=True)
+    print(f"    host synchronisations: {len(syncs)} in the run, {ba_syncs} "
+          f"inside BA passes")
     for k in STAGES:
         if k in stages:
             print(f"    {k}: host {stages[k]['host_ms']:.1f} ms over "
-                  f"{stages[k]['calls']} calls")
+                  f"{stages[k]['calls']} calls, device span "
+                  f"{stages[k]['device_span_ms']:.1f} ms")
     for row in out["top_kernels"][:8]:
         print(f"    {row['ms']:9.2f} ms {row['count']:6d}x {row['name']}")
     return out
 
 
-def run_slice(torch, dev, details):
+def setup_slice(dev):
+    """Flagship config (BA on, loop closing off), the committed weights on
+    the card, and the rendered frames both tracker runs share."""
     import dataclasses
-
-    import numpy as np
 
     from gl_slam_tpu_torch.config import flagship_config
     from gl_slam_tpu_torch.io import synthetic
-    from gl_slam_tpu_torch.ops import _build
     from gl_slam_tpu_torch.train import e2e
 
     cfg = flagship_config()
     cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
-        cfg.runtime, run_full_ba=False, loop_closing=False))
+        cfg.runtime, run_full_ba=True, loop_closing=False))
     check(cfg.frontend.subpix_source == "image", "centroid refinement")
+    check(cfg.frontend.nms_radius == NMS_RADIUS, "nms radius")
     H, W = cfg.frontend.image_height, cfg.frontend.image_width
     t0 = time.perf_counter()
     sp, lg = e2e.load_flagship_frontend(os.path.join(ROOT, "checkpoints"),
@@ -368,65 +490,158 @@ def run_slice(torch, dev, details):
                                  height=H, width=W, seed=101,
                                  motion="forward_turn")
     stack = e2e.render_stack(scene, N_FRAMES, cfg.frontend.max_keypoints)
-    print(f"  setup (weights + {N_FRAMES} rendered frames) "
+    print(f"setup (weights + {N_FRAMES} rendered frames) "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, sp, lg, scene, stack
 
-    def once():
+
+def ate_over(diag, scene, n):
+    """ATE-RMSE (m) of the first n keyframes of a run's trajectory."""
+    import numpy as np
+    R, t, fidx = diag["R"][:n], diag["t"][:n], diag["frame_idx"][:n]
+    c_est = np.einsum('kij,kj->ki', R.transpose(0, 2, 1), -t)
+    c_gt = np.stack([-scene.poses_R[i].T @ scene.poses_t[i] for i in fidx])
+    return float(np.sqrt(((c_est - c_gt) ** 2).sum(1).mean()))
+
+
+def check_run(res, diag, n_frames, launches, want, what):
+    import numpy as np
+    o = diag["outputs"]
+    check(np.isfinite(diag["R"]).all() and np.isfinite(diag["t"]).all(),
+          f"{what}: non-finite keyframe pose")
+    check(np.isfinite(o.R).all() and np.isfinite(o.t).all(),
+          f"{what}: non-finite frame pose")
+    check(res.num_rejected == 0 and res.num_keyframes == n_frames,
+          f"{what}: frames not kept: {res.num_keyframes} keyframes of "
+          f"{n_frames}")
+    check(res.mean_matches > 300,
+          f"{what}: mean matches {res.mean_matches} <= 300")
+    check(res.ate_m <= 1.0, f"{what}: ATE {res.ate_m} m > 1 m")
+    check(launches == want, f"{what}: launch counts {launches} != {want}")
+
+
+def run_slice(torch, dev, details, cfg, sp, lg, scene, stack):
+    """This slice's path: bootstrap + 3 chunks of 8 with BA every 8. Four
+    runs through `run_learned_e2e`: warm-up, profiled, the counted one, and
+    one with the BA diagnostics on (window reprojection before and after,
+    live LM iterations, time per pass)."""
+    from gl_slam_tpu_torch.ops import _build
+    from gl_slam_tpu_torch.train import e2e
+
+    def once(diag, ba_diag=False):
         return e2e.run_learned_e2e(sp, lg, scene, cfg, N_FRAMES, chunk=CHUNK,
-                                   device=dev, seed=0, stack=stack,
-                                   diag_out=diag)
+                                   ba_every=CHUNK, device=dev, seed=0,
+                                   stack=stack, diag_out=diag,
+                                   ba_diag=ba_diag)
 
-    diag = {}
     t0 = time.perf_counter()
-    once()                                   # warm-up: cuDNN plans, caches
+    once({})                                 # warm-up: cuDNN plans, caches
     torch.cuda.synchronize()
     print(f"  warm-up run {time.perf_counter() - t0:.1f} s", flush=True)
-    details["profile"] = profile_run(torch, once)
+    prof = details["profile"] = profile_run(torch, lambda: once({}))
 
     diag = {}
+    torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    res = once()
+    res = once(diag)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
     print(f"  bootstrap + {N_FRAMES - 2} frames (unprofiled): {run_s:.3f} s "
           f"wall", flush=True)
     o = diag["outputs"]
-    tracked = N_FRAMES - 2
-    # Matcher passes: the bootstrap's and each chunk prologue's (18
-    # attention calls: 9 layers x self + cross), and two per frame (72:
-    # 9 layers x 2 passes x (2 self + 2 cross, per set at its own size)).
-    per_chunk_attn = 18 + CHUNK * 72
-    want = {"attention": 18 + 2 * 18 + tracked * 72,
-            "assignment": ASSIGN_KERNELS_PER_CALL * (1 + 2 + tracked * 2)}
+    want = expected_launches(N_CHUNKS)
     print(f"  frames {res.num_frames} keyframes {res.num_keyframes} "
           f"rejected {res.num_rejected} mean matches {res.mean_matches:.1f} "
           f"mean inliers {res.mean_inliers:.1f} ATE {res.ate_m:.4f} m "
-          f"tracked fps {res.fps:.2f} launches {launches} "
-          f"(expected {want})", flush=True)
+          f"(first {N_FRAMES_NO_BA} keyframes "
+          f"{ate_over(diag, scene, N_FRAMES_NO_BA):.4f} m) BA runs "
+          f"{res.num_ba_runs} recoveries {diag['num_recoveries']} tracked "
+          f"fps {res.fps:.2f} launches {launches} (expected {want})",
+          flush=True)
+    print(f"  tracking state {diag['state_bytes'] / 2**20:.1f} MiB, peak "
+          f"allocated {peak / 2**20:.1f} MiB", flush=True)
+    check_run(res, diag, N_FRAMES, launches, want, "BA-on slice")
+    check(res.num_ba_runs == N_CHUNKS,
+          f"{res.num_ba_runs} BA runs, expected {N_CHUNKS}")
+    check(diag["num_recoveries"] == 0,
+          f"{diag['num_recoveries']} health-check recoveries")
+    check(prof["stages"].get("backend.ba", {}).get("calls") == N_CHUNKS,
+          "the profiled run shows no backend.ba marker per BA pass")
+
+    bd = {}
+    res_d = once(bd, ba_diag=True)
+    torch.cuda.synchronize()
+    print(f"  with BA diagnostics: ATE {res_d.ate_m:.4f} m, tracked fps "
+          f"{res_d.fps:.2f}, {cfg.ba.full_ba_iters} LM iterations issued per "
+          f"pass", flush=True)
+    check(res_d.num_ba_runs == N_CHUNKS and len(bd["ba_reproj"]) == N_CHUNKS,
+          f"diagnostics of {len(bd['ba_reproj'])} BA passes, expected "
+          f"{N_CHUNKS}")
+    for i, ((before, after), iters, (host_ms, dev_ms)) in enumerate(zip(
+            bd["ba_reproj"], bd["ba_lm_iters"], bd["ba_ms"])):
+        print(f"  BA {i + 1}: window mean reprojection {before:.4f} px -> "
+              f"{after:.4f} px, {iters} live LM iterations, host issue "
+              f"{host_ms:.2f} ms, {dev_ms:.2f} ms between CUDA events "
+              f"(pass + recycling + two diagnostic reprojections)",
+              flush=True)
+        check(math.isfinite(before) and math.isfinite(after),
+              f"non-finite window reprojection error: {bd['ba_reproj']}")
+        check(1 <= iters <= cfg.ba.full_ba_iters,
+              f"BA {i + 1}: {iters} live LM iterations")
     details["slice"] = dict(
-        config="flagship_config(), run_full_ba=False, loop_closing=False, "
-               "centroid subpix, make_scene(seed=101, num_landmarks=20000, "
+        config="flagship_config(), run_full_ba=True, ba_every=8, "
+               "loop_closing=False, centroid subpix, NMS kernel, "
+               "make_scene(seed=101, num_landmarks=20000, "
                "motion='forward_turn') 376x1241",
         frames=res.num_frames, keyframes=res.num_keyframes,
         rejected=res.num_rejected, mean_matches=res.mean_matches,
-        mean_inliers=res.mean_inliers, ate_m=res.ate_m, fps=res.fps,
-        run_wall_s=run_s, launches=launches, expected_launches=want,
-        attention_per_chunk=per_chunk_attn,
+        mean_inliers=res.mean_inliers, ate_m=res.ate_m,
+        ate_first_frames_m=ate_over(diag, scene, N_FRAMES_NO_BA),
+        fps=res.fps, run_wall_s=run_s, launches=launches,
+        expected_launches=want, num_ba_runs=res.num_ba_runs,
+        num_recoveries=diag["num_recoveries"],
+        state_bytes=diag["state_bytes"], peak_allocated_bytes=peak,
+        ba_diag_run=dict(ate_m=res_d.ate_m, fps=res_d.fps,
+                         ba_reproj=bd["ba_reproj"],
+                         ba_lm_iters=bd["ba_lm_iters"], ba_ms=bd["ba_ms"],
+                         lm_iters_issued=cfg.ba.full_ba_iters),
         num_matches=o.num_matches.tolist(),
         num_inliers=o.num_inliers.tolist(),
         num_map_matches=o.num_map_matches.tolist())
-    check(np.isfinite(diag["R"]).all() and np.isfinite(diag["t"]).all(),
-          "non-finite keyframe pose")
-    check(np.isfinite(o.R).all() and np.isfinite(o.t).all(),
-          "non-finite frame pose")
-    check(res.num_rejected == 0 and res.num_keyframes == N_FRAMES,
-          f"frames not kept: {res.num_keyframes} keyframes of {N_FRAMES}")
-    check(res.mean_matches > 300, f"mean matches {res.mean_matches} <= 300")
-    check(res.ate_m <= 1.0, f"ATE {res.ate_m} m > 1 m")
-    check(launches == want, f"launch counts {launches} != {want}")
     return launches
+
+
+def run_no_ba(torch, dev, details, cfg, sp, lg, scene, stack):
+    """The earlier path (BA off) over the bootstrap + one chunk of the same
+    frames, with its own launch-count check."""
+    import dataclasses
+
+    from gl_slam_tpu_torch.ops import _build
+    from gl_slam_tpu_torch.train import e2e
+
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, run_full_ba=False))
+    diag = {}
+    _build.reset_launch_counts()
+    res = e2e.run_learned_e2e(sp, lg, scene, cfg, N_FRAMES_NO_BA, chunk=CHUNK,
+                              device=dev, seed=0,
+                              stack=stack[:N_FRAMES_NO_BA], diag_out=diag)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = expected_launches(1)
+    print(f"  frames {res.num_frames} keyframes {res.num_keyframes} mean "
+          f"matches {res.mean_matches:.1f} ATE {res.ate_m:.4f} m BA runs "
+          f"{res.num_ba_runs} tracked fps {res.fps:.2f} launches {launches} "
+          f"(expected {want})", flush=True)
+    details["slice_no_ba"] = dict(
+        frames=res.num_frames, keyframes=res.num_keyframes,
+        mean_matches=res.mean_matches, ate_m=res.ate_m, fps=res.fps,
+        launches=launches, expected_launches=want)
+    check_run(res, diag, N_FRAMES_NO_BA, launches, want, "BA-off slice")
+    check(res.num_ba_runs == 0, "BA ran although it was switched off")
 
 
 def main() -> int:
@@ -461,16 +676,25 @@ def main() -> int:
                     print(f"  {name}: {line.strip()}")
         details["ptxas"] = reports
 
+        slice_args = setup_slice(dev)
+        cfg, sp, _, _, stack = slice_args
+
         print("phase 2: kernels against their plain versions", flush=True)
         gen = torch.Generator(device=dev).manual_seed(0)
-        attn_rows, asg_rows = [], []
+        attn_rows, asg_rows, nms_rows = [], [], []
         attn_err = check_attention(torch, gen, dev, attn_rows)
         asg_err = check_assignment(torch, gen, dev, asg_rows)
+        nms_err = check_nms(torch, gen, dev, nms_rows, cfg, sp, stack)
         details["attention"] = attn_rows
         details["assignment"] = asg_rows
+        details["nms"] = nms_rows
 
-        print("phase 3: flagship-width chunked tracker", flush=True)
-        launches = run_slice(torch, dev, details)
+        print("phase 3: flagship-width chunked tracker with window BA",
+              flush=True)
+        launches = run_slice(torch, dev, details, *slice_args)
+        print("phase 4: the same tracker with BA off, bootstrap + 1 chunk",
+              flush=True)
+        run_no_ba(torch, dev, details, *slice_args)
 
         kernels = []
         for name, rows, err, src, replaces in (
@@ -479,8 +703,12 @@ def main() -> int:
                  "gl_slam_tpu/ops/attention.py:68"),
                 ("assignment", asg_rows, asg_err,
                  "gl_slam_tpu_torch/csrc/assignment.cu",
-                 "gl_slam_tpu/ops/assignment.py:128")):
-            head = rows[0]                    # the prologue shape
+                 "gl_slam_tpu/ops/assignment.py:128"),
+                ("nms", nms_rows[1:], nms_err,
+                 "gl_slam_tpu_torch/csrc/nms.cu",
+                 "gl_slam_tpu/ops/nms.py:86")):
+            # the prologue shape; for nms the detector's heatmaps of a chunk
+            head = rows[0]
             kernels.append(dict(
                 name=name, route="cuda", source=src, replaces=replaces,
                 launches=launches[name], max_abs_err=err, ms=head["ms"],

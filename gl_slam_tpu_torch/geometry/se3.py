@@ -1,9 +1,10 @@
 """SO(3)/SE(3) utilities, float32.
 
 Counterpart of gl_slam_tpu/geometry/se3.py (the functions the chunked
-tracker reaches). A camera pose (R, t) maps world points to the camera
-frame, x_cam = R @ x_world + t. Functions take (..., 3) / (..., 3, 3)
-batches where the JAX version is vmapped.
+tracker and its backend reach). A camera pose (R, t) maps world points to
+the camera frame, x_cam = R @ x_world + t. Functions take (..., 3) /
+(..., 3, 3) batches where the JAX version is vmapped (`exp_so3` is also the
+JAX `exp_so3_batched`).
 """
 
 from __future__ import annotations
@@ -44,6 +45,34 @@ def project_to_so3(M: torch.Tensor) -> torch.Tensor:
     D = torch.ones(M.shape[:-2] + (3,), dtype=M.dtype, device=M.device)
     D = torch.cat([D[..., :2], d[..., None]], dim=-1)
     return (U * D[..., None, :]) @ Vt
+
+
+def _mv(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return (R @ v[..., None])[..., 0]
+
+
+def compose(R1, t1, R2, t2):
+    """(R1,t1) o (R2,t2): apply (R2,t2) first, then (R1,t1)."""
+    return R1 @ R2, _mv(R1, t2) + t1
+
+
+def inverse(R, t):
+    Rt = R.transpose(-1, -2)
+    return Rt, -_mv(Rt, t)
+
+
+def delta_pose(R_pre, t_pre, R_post, t_post):
+    """Rigid delta T_post o T_pre^{-1} with SO(3)-projected rotation: the
+    correction applied to keyframes and points created while a BA ran on a
+    snapshot."""
+    Ri, _ = inverse(R_pre, t_pre)
+    dR = project_to_so3(R_post @ Ri)
+    return dR, t_post - _mv(dR, t_pre)
+
+
+def apply_to_points(R, t, pts):
+    """Transform (N,3) points: R @ p + t."""
+    return pts @ R.transpose(-1, -2) + t
 
 
 def chain_relative(R_prev, t_prev, R_rel, t_rel):

@@ -9,9 +9,9 @@ rebuilt and a stale library is never loaded. A missing `nvcc` or a failed
 build raises: there is no fallback for a CUDA tensor.
 
 Launch counters: every kernel wrapper adds to `LAUNCHES[name]` the number of
-kernels it launched (attention 1 per call, assignment 4), where it launches
-them and nowhere else, so a run can show that the main path went through the
-kernels (chip_smoke.py resets and reads them).
+kernels it launched (attention 1 per call, assignment 4, nms 1), where it
+launches them and nowhere else, so a run can show that the main path went
+through the kernels (chip_smoke.py resets and reads them).
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = {"attention": "attention.cu", "assignment": "assignment.cu"}
+SOURCES = {"attention": "attention.cu", "assignment": "assignment.cu",
+           "nms": "nms.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

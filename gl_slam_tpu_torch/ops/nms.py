@@ -1,10 +1,21 @@
-"""Keypoint NMS + threshold + top-K detection, as plain PyTorch.
+"""Keypoint NMS + threshold + top-K detection.
 
-Counterpart of gl_slam_tpu/ops/nms.py on the path the chunked tracker runs:
-the JAX `nms()` takes its XLA `reduce_window` version unless the caller asks
-for the opt-in Pallas kernel, so this module ports `_nms_xla`,
-`_suppress_with_tiebreak` and the two-stage `detect_keypoints`. (The Pallas
-window-max kernel `_nms_pallas` is not ported yet; see ROADMAP.md.)
+Counterpart of gl_slam_tpu/ops/nms.py. `nms_plain` is the plain PyTorch
+version of the suppression (the JAX `_nms_xla`: a (2r+1)^2 window max, then
+`_suppress_with_tiebreak`); `nms_cuda` launches the hand-written kernel in
+csrc/nms.cu, which replaces the Pallas window-max kernel `_nms_pallas` /
+`_nms_kernel` and applies the tie-break in the same launch. `nms` takes the
+plain version only for CPU tensors: a CUDA tensor launches the kernel or
+raises.
+
+Padding: the kernel and the plain version count pixels outside the image as
+-inf; the Pallas kernel pads with 0.0. The three agree on the non-negative
+heatmaps the detector produces (a softmax times masks), and the kernel
+equals the plain version bit for bit on any f32 map without NaN (max is
+exact). The kernel takes a contiguous float32 (B, H, W) map with B <= 65535
+and radius <= 16. The plain version passes linear pixel indices through
+float32 and so needs H * W < 2**24; the kernel compares positions, not
+indices, and has no such limit.
 
 Both top-k stages must break ties toward the lower index like `lax.top_k`:
 a suppressed map is mostly exact zeros (ops/select.topk_stable).
@@ -14,8 +25,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
+from . import _build
 from .select import topk_stable
+
+_MAX_RADIUS = 16
 
 
 def _window_max(x: torch.Tensor, radius: int) -> torch.Tensor:
@@ -39,9 +54,48 @@ def _suppress_with_tiebreak(heat: torch.Tensor, pooled: torch.Tensor,
     return torch.where(survivor, heat, 0.0)
 
 
-def nms(heat: torch.Tensor, radius: int) -> torch.Tensor:
+def nms_plain(heat: torch.Tensor, radius: int) -> torch.Tensor:
     """(B,H,W) -> scores suppressed to local maxima (the `_nms_xla` path)."""
     return _suppress_with_tiebreak(heat, _window_max(heat, radius), radius)
+
+
+def nms_cuda(heat: torch.Tensor, radius: int) -> torch.Tensor:
+    """The CUDA kernel: window max and tie-break in one launch."""
+    if not heat.is_cuda:
+        raise ValueError("nms_cuda: heat must be a CUDA tensor")
+    if heat.dtype != torch.float32:
+        raise ValueError(f"nms_cuda: heat must be float32, got {heat.dtype}")
+    if heat.dim() != 3:
+        raise ValueError(f"nms_cuda: heat must be (B, H, W), got "
+                         f"{tuple(heat.shape)}")
+    if not heat.is_contiguous():
+        raise ValueError("nms_cuda: heat must be contiguous")
+    if not 0 <= radius <= _MAX_RADIUS:
+        raise ValueError(f"nms_cuda: radius {radius} not in "
+                         f"[0, {_MAX_RADIUS}]")
+    B, H, W = heat.shape
+    if B > 65535:
+        raise ValueError(f"nms_cuda: batch {B} > 65535")
+    out = torch.empty_like(heat)
+    if heat.numel() == 0:
+        return out
+    fn = _build.load("nms").gl_nms_fwd
+    fn.restype = _build.ctypes.c_int
+    fn.argtypes = [_build.ctypes.c_void_p] * 2 + [_build.ctypes.c_int] * 4 \
+        + [_build.ctypes.c_void_p]
+    err = fn(_build.ptr(heat), _build.ptr(out), B, H, W, int(radius),
+             _build.stream_of(heat))
+    _build.LAUNCHES["nms"] += 1
+    _build.check(err, "nms")
+    return out
+
+
+def nms(heat: torch.Tensor, radius: int) -> torch.Tensor:
+    """Dispatch on the device: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if heat.is_cuda:
+        return nms_cuda(heat, radius)
+    return nms_plain(heat, radius)
 
 
 def detect_keypoints(heat: torch.Tensor, max_keypoints: int,
@@ -50,7 +104,8 @@ def detect_keypoints(heat: torch.Tensor, max_keypoints: int,
     valid (B,K)); per-row top-R then a global top-K when the map is much
     larger than K."""
     B, H, W = heat.shape
-    supp = nms(heat, radius)
+    with record_function("extract.nms"):
+        supp = nms(heat, radius)
     per_row = min(max(W // (radius + 1) + 1, 8), W)
     if H * W > 4 * max_keypoints and per_row * H >= max_keypoints:
         s_row, x_row = topk_stable(supp, per_row)              # (B,H,R)

@@ -10,7 +10,10 @@ package's closed forms step by step instead of a library eigensolver's:
   * `eigh3x3` / `svd3` — closed-form symmetric 3x3 eigendecomposition
     (Cardano) and the SVD built from it;
   * `cholesky_solve` — unrolled Cholesky for the 5x5/6x6 normal equations;
-  * `inv3x3`, `det3x3`.
+  * `inv3x3`, `det3x3`;
+  * `scaled_solve` — the one library call: a Jacobi-scaled dense LU solve
+    for the window BA's reduced camera system (`jnp.linalg.solve` there,
+    `torch.linalg.solve_ex` here).
 
 All functions take (..., n, n) batches and run in float32.
 """
@@ -57,6 +60,22 @@ def cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             s = s - L[k][i] * x[k]
         x[i] = s / L[i][i]
     return torch.stack(x, dim=-1)
+
+
+def scaled_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Direct dense solve with symmetric Jacobi scaling, for small SPD
+    systems with badly mixed parameter scales (a Schur-reduced camera
+    system: rotation columns scale like f*depth, translation like f).
+
+    x = D y where (D A D) y = D b, D = diag(A)^{-1/2}. `solve_ex` neither
+    raises nor synchronises on a singular system: like `jnp.linalg.solve` it
+    hands back whatever the LU gives (non-finite values, which the pipeline's
+    health check catches)."""
+    d = torch.diagonal(A, dim1=-2, dim2=-1)
+    s = torch.rsqrt(torch.clamp_min(d.abs(), _EPS))
+    As = A * s[..., :, None] * s[..., None, :]
+    y, _ = torch.linalg.solve_ex(As, (b * s)[..., None])
+    return y[..., 0] * s
 
 
 def smallest_eigvec(M: torch.Tensor, iters: int = 3) -> torch.Tensor:

@@ -2,9 +2,19 @@
 
 Counterpart of gl_slam_tpu/slam/chunk_driver.py: bootstrap from two images
 through the same extractor and matcher the chunks use, then one chunk of T
-frames per `track_chunk` call. The window BA, slot recycling, health check
-and loop-closure hooks of the JAX driver are not ported yet: asking for
-them raises instead of silently skipping them.
+frames per `track_chunk` call, a sliding-window BA pass (slam/ba.py) with
+slot recycling every `ba_every` frames, and the NaN health check with
+rollback at that cadence. The loop-closure hook of the JAX version is not
+ported yet: asking for it raises instead of silently skipping it.
+
+Nothing here reads the device back while tracking. The BA window is derived
+from `num_kf` on the device. The health check works with a one-period lag:
+each BA trigger starts a non-blocking copy of `t_cur` into pinned host
+memory, marked by a CUDA event, and consumes the copy started at the
+previous trigger (waiting on that event only, not on the stream). A
+non-finite pose rolls the state back to the last snapshot that was verified
+finite, up to two BA periods old. Snapshots alias the live state: state
+updates never write in place (slam/state.py).
 
 Randomness: the essential RANSAC of the bootstrap and of every frame takes
 (hypotheses, 8) uniform draws, in the order bootstrap, then frame by frame.
@@ -17,29 +27,37 @@ from __future__ import annotations
 
 from typing import Callable, List, Optional
 
+import time
+
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..config import SLAMConfig
 from ..device import resolve_device
+from . import ba as ba_mod
 from . import frontend, fused
+from .state import recycle_free_slots
 
 
 class ChunkedPipeline:
     """Usage:
-        pipe = ChunkedPipeline(cfg, K, sp, lg, chunk=8)
+        pipe = ChunkedPipeline(cfg, K, sp, lg, chunk=8, ba_every=8)
         pipe.bootstrap_from_images(img0, img1, gt_scale)
         for each chunk of images: pipe.track_chunk(images, frame_idx0)
+        pipe.finish()
+
+    `ba_diag` appends to `ba_log`, per BA pass, its `ba.BADiag` (window
+    reprojection before and after, live LM iterations: device scalars, read
+    by the caller), the host time to issue the pass (ms) and, on a card, a
+    pair of CUDA events around it.
     """
 
     def __init__(self, cfg: SLAMConfig, K, sp_net, lg_net, chunk: int = 8,
-                 seed: int = 0, enable_ba: bool = True,
+                 ba_every: int = 8, seed: int = 0, enable_ba: bool = True,
                  device=None,
-                 draws: Optional[Callable[[int], torch.Tensor]] = None):
-        if enable_ba and cfg.runtime.run_full_ba:
-            raise NotImplementedError(
-                "window BA (slam/ba.py) is not ported yet; see ROADMAP.md "
-                "- pass enable_ba=False or RuntimeConfig(run_full_ba=False)")
+                 draws: Optional[Callable[[int], torch.Tensor]] = None,
+                 ba_diag: bool = False):
         if cfg.runtime.loop_closing:
             raise NotImplementedError(
                 "loop closing (slam/loopclose.py) is not ported yet; see "
@@ -57,9 +75,21 @@ class ChunkedPipeline:
         self.match_fn = fused.build_matcher(cfg, lg_net)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._draws = draws
+        self.enable_ba = enable_ba and cfg.runtime.run_full_ba
+        self.ba_every_chunks = max(ba_every // chunk, 1)
+        self._win_kf = self.ba_every_chunks * chunk
         self.state: Optional[frontend.TrackState] = None
         self.outputs: List[list] = []
         self._frames = 0
+        self._chunks_since_ba = 0
+        self.num_ba_runs = 0
+        self.num_recoveries = 0
+        self._last_good: Optional[frontend.TrackState] = None
+        # (host copy of t_cur, its CUDA event or None, the state it belongs to)
+        self._pending_health = None
+        self._ba_diag = ba_diag
+        self.ba_log: List[tuple] = []   # (BADiag, host ms, CUDA events)
+        self._last_ba_diag = None
 
     def draw(self, n: int) -> torch.Tensor:
         """The next n RANSAC draw sets, (n, hypotheses, 8) in [0, 1)."""
@@ -98,16 +128,118 @@ class ChunkedPipeline:
         self._frames = frame_idx0 + 2
         return out
 
+    def bootstrap_from_state(self, state: frontend.TrackState,
+                             num_frames: int = 2):
+        """Adopt an externally bootstrapped state."""
+        self.state = state
+        self._frames = num_frames
+
+    def _ba_fn(self, st: frontend.TrackState) -> frontend.TrackState:
+        """One BA pass over the last `_win_kf` + overlap keyframes, then the
+        re-anchoring of the tracking carry and slot recycling. The window
+        comes from `num_kf` on the device."""
+        cfg, K = self.cfg, self.K
+        m = st.map
+        first = torch.clamp_min(
+            m.num_kf - (self._win_kf + cfg.ba.full_ba_overlap), 0)
+        win = m.num_kf - first
+        with record_function("backend.ba"):
+            if self._ba_diag:
+                new_map, self._last_ba_diag = ba_mod.ba_step_diag(
+                    cfg, K, m, first, win)
+            else:
+                new_map = ba_mod.ba_step(cfg, K, m, first, win)
+        last = torch.clamp_min(new_map.num_kf - 1, 0).long()
+        prev = torch.clamp_min(new_map.num_kf - 2, 0).long()
+        # Re-anchor the constant-velocity step carry to the BA-refined
+        # poses: between BAs it updates multiplicatively from accepted LM
+        # steps, so in-bound excursions can compound; the window BA's last
+        # two camera centres give the trusted step magnitude.
+        c_last = -(new_map.kf_R[last].T @ new_map.kf_t[last])
+        c_prev = -(new_map.kf_R[prev].T @ new_map.kf_t[prev])
+        step_ba = torch.clamp(torch.linalg.vector_norm(c_last - c_prev),
+                              1e-3, 10.0)
+        st = st._replace(map=new_map, R_cur=new_map.kf_R[last],
+                         t_cur=new_map.kf_t[last], t_rel_norm=step_ba)
+        if cfg.map.recycle_enabled:
+            with record_function("backend.recycle"):
+                st = st._replace(map=recycle_free_slots(
+                    st.map, cfg.map.recycle_min_age,
+                    min(cfg.map.recycle_budget, cfg.map.max_points),
+                    stale_age=cfg.map.recycle_stale_age))
+        return st
+
     @torch.no_grad()
     def track_chunk(self, images, frame_idx0: Optional[int] = None):
-        """Track one chunk of T frames (no host read-back)."""
+        """Track one chunk of T frames, then run the BA pass and the health
+        check when their cadence is due (no host read-back)."""
         if frame_idx0 is None:
             frame_idx0 = self._frames
         self.state, outs = self.chunk_fn(self.state, self._images(images),
                                          frame_idx0, self.draw(self.chunk))
         self.outputs.append(outs)
         self._frames += self.chunk
+        self._chunks_since_ba += 1
+        if self.enable_ba and self._chunks_since_ba >= self.ba_every_chunks:
+            self._chunks_since_ba = 0
+            if self._ba_diag:
+                self._timed_ba_pass()
+            else:
+                self.state = self._ba_fn(self.state)
+            self.num_ba_runs += 1
+            self._health_check()
         return outs
+
+    def _timed_ba_pass(self):
+        """The BA pass between two CUDA events (none on the CPU) and two
+        reads of the host clock; nothing waits for the device."""
+        events = None
+        if self.device.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        t0 = time.perf_counter()
+        self.state = self._ba_fn(self.state)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if events is not None:
+            events[1].record()
+        self.ba_log.append((self._last_ba_diag, host_ms, events))
+
+    def _health_check(self):
+        """NaN health check + rollback at BA cadence, one period late: this
+        trigger consumes the `t_cur` whose host copy the previous trigger
+        started, then starts the copy of the current one."""
+        if not self.cfg.runtime.health_check:
+            return
+        if self._pending_health is not None:
+            host_t, event, snapshot = self._pending_health
+            if event is not None:
+                # waits for work up to the previous trigger, not for what
+                # was queued since
+                event.synchronize()
+            if bool(torch.isfinite(host_t).all()):
+                self._last_good = snapshot
+            else:
+                self.num_recoveries += 1
+                self._pending_health = None
+                if self._last_good is not None:
+                    self.state = self._last_good
+                return
+        snap = self.state
+        if snap.t_cur.is_cuda:
+            host_t = torch.empty(snap.t_cur.shape, dtype=snap.t_cur.dtype,
+                                 pin_memory=True)
+            host_t.copy_(snap.t_cur, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(snap.t_cur.device))
+        else:
+            host_t, event = snap.t_cur, None
+        self._pending_health = (host_t, event, snap)
+
+    def finish(self):
+        """Wait for the device to finish all enqueued work."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def trajectory(self):
         """Keyframe poses (R (k,3,3), t (k,3)) and source frame indices."""

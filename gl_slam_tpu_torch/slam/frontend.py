@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -25,7 +26,8 @@ from ..config import SLAMConfig
 from ..geometry import essential, projection, se3, triangulation
 from ..ops import match as match_ops
 from . import pose_ba, reobserve
-from .state import MapState, _scatter, init_map_state, insert_keyframe
+from .state import (MapState, _scatter, init_map_state, insert_keyframe,
+                    map_state_from_numpy)
 
 _I32 = torch.int32
 
@@ -110,6 +112,30 @@ def init_track_state(cfg: SLAMConfig, device=None) -> TrackState:
         R_cur=torch.eye(3, **kw), t_cur=torch.zeros(3, **kw),
         t_rel_norm=torch.ones((), **kw), R_rel=torch.eye(3, **kw),
         t_rel=torch.zeros(3, **kw))
+
+
+def track_state_from_numpy(fields, device=None) -> TrackState:
+    """Build a `TrackState` from numpy arrays: `fields` is a mapping or a
+    named tuple with this class's field names, `map` holding the map's
+    fields (state.map_state_from_numpy). Other fields (a PRNG key, image
+    patches) are ignored; a missing `R_rel` / `t_rel` becomes the identity
+    motion."""
+    if hasattr(fields, "_asdict"):
+        fields = fields._asdict()
+
+    def f32(name, default=None):
+        a = fields.get(name)
+        if a is None:
+            a = default
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    return TrackState(
+        map=map_state_from_numpy(fields["map"], device),
+        prev_kpts=f32("prev_kpts"), prev_desc=f32("prev_desc"),
+        prev_valid=torch.from_numpy(
+            np.array(fields["prev_valid"], dtype=bool)).to(device),
+        R_cur=f32("R_cur"), t_cur=f32("t_cur"), t_rel_norm=f32("t_rel_norm"),
+        R_rel=f32("R_rel", np.eye(3)), t_rel=f32("t_rel", np.zeros(3)))
 
 
 def bootstrap_step(cfg: SLAMConfig, K, state: TrackState, f0: FrameFeatures,

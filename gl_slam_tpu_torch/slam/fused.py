@@ -1,8 +1,9 @@
 """Chunked pipeline: batched extraction, batched prologue, per-frame loop.
 
-Counterpart of gl_slam_tpu/slam/fused.py on its default path (centroid
-sub-pixel refinement, the pass-1 prologue without in-loop recovery). For a
-chunk of T frames:
+Counterpart of gl_slam_tpu/slam/fused.py (centroid sub-pixel refinement,
+the pass-1 prologue without in-loop recovery), with extraction through the
+NMS kernel as under the reference's `use_pallas_nms=True`. For a chunk of
+T frames:
 
   1. the extractor runs batched over the T images;
   2. a prologue matches all T consecutive pairs at once (one LightGlue
@@ -34,21 +35,27 @@ from ..ops import nms as nms_ops
 from . import frontend
 
 
+def detector_heatmap(cfg: SLAMConfig, sp_net, images):
+    """images (B, H, W) in [0, 1] -> (heat (B, H8, W8) float32 with the
+    padding up to multiples of 8 zeroed, descriptor grid)."""
+    H, W = cfg.frontend.image_height, cfg.frontend.image_width
+    x = F.pad(images, (0, (-W) % 8, 0, (-H) % 8))[..., None]
+    heat, grid = sp_net(x)
+    dev = heat.device
+    row_ok = torch.arange(heat.shape[1], device=dev) < H
+    col_ok = torch.arange(heat.shape[2], device=dev) < W
+    return heat * row_ok[None, :, None] * col_ok[None, None, :], grid
+
+
 def build_extract_fn(cfg: SLAMConfig, sp_net):
     """fn(images (B, H, W) in [0, 1]) -> (kpts (B, N, 2), desc (B, N, D),
     valid (B, N)): CNN forward, NMS + top-K, centroid refinement and
-    descriptor sampling."""
-    H, W = cfg.frontend.image_height, cfg.frontend.image_width
+    descriptor sampling. On the card the NMS is the hand-written kernel
+    (ops/nms.nms dispatches on the heatmap's device)."""
     N = cfg.frontend.max_keypoints
-    pad_h, pad_w = (-H) % 8, (-W) % 8
 
     def extract_batch(images):
-        x = F.pad(images, (0, pad_w, 0, pad_h))[..., None]
-        heat, grid = sp_net(x)
-        dev = heat.device
-        row_ok = torch.arange(heat.shape[1], device=dev) < H
-        col_ok = torch.arange(heat.shape[2], device=dev) < W
-        heat = heat * row_ok[None, :, None] * col_ok[None, None, :]
+        heat, grid = detector_heatmap(cfg, sp_net, images)
         kpts, _, valid = nms_ops.detect_keypoints(
             heat, N, cfg.frontend.score_threshold, cfg.frontend.nms_radius)
         kpts = kpts.float()
@@ -112,11 +119,12 @@ def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int):
 
         outs = []
         ok_prev = torch.ones((), dtype=torch.bool, device=kpts_b.device)
+        frame_ids = torch.arange(frame_idx0, frame_idx0 + chunk,
+                                 dtype=torch.int32, device=kpts_b.device)
         for i in range(chunk):
             f = frontend.FrameFeatures(
                 kpts=kpts_b[i], desc=desc_b[i], valid=valid_b[i],
-                frame_idx=torch.tensor(frame_idx0 + i, dtype=torch.int32,
-                                       device=kpts_b.device))
+                frame_idx=frame_ids[i])
             m = match_ops.MatchResult(matches0=m_b.matches0[i],
                                       mscores0=m_b.mscores0[i])
             ess = essential_mod.EssentialResult(*(x[i] for x in ess_b))

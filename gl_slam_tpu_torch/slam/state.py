@@ -9,14 +9,19 @@ out-of-range indices; every caller there sends "drop" to exactly one index
 past the end (the capacity). `_scatter` reproduces that with one spare row
 appended before the write and sliced off after it, never by clamping (a
 clamped write would land on a real row). Reads with index -1 keep Python's
-wrap-around, as in JAX. Slot recycling (`recycle_free_slots`) comes with
-window BA in a later part of the port.
+wrap-around, as in JAX.
+
+Every update builds new tensors (`_scatter` copies before it writes) and
+nothing mutates a state tensor in place, so an older `MapState` stays valid
+after later updates: ChunkedPipeline's health-check snapshots alias the live
+state instead of copying it.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..ops.select import topk_stable
@@ -70,15 +75,19 @@ def _scatter(x: torch.Tensor, idx: torch.Tensor, vals, flat: bool = False,
              accumulate: bool = False) -> torch.Tensor:
     """`x.at[idx].set(vals, mode='drop')` (or `.add` with `accumulate`) for
     row indices in [0, len(x)], len(x) being dropped. With `flat`, `idx`
-    indexes x viewed as 1-D and may run up to the end of one spare row."""
+    indexes x viewed as 1-D and may run up to the end of one spare row.
+    A Python scalar `vals` is written by a fill, not turned into a device
+    tensor first: that copy would make the host wait for the stream."""
     spare = torch.zeros((1,) + x.shape[1:], dtype=x.dtype, device=x.device)
     buf = torch.cat([x, spare])
     view = buf.view(-1) if flat else buf
-    vals = torch.as_tensor(vals, dtype=x.dtype, device=x.device)
-    if accumulate:
-        view.index_add_(0, idx.long(), vals.expand(idx.shape + x.shape[1:]))
+    if not torch.is_tensor(vals):
+        view.index_fill_(0, idx.reshape(-1).long(), vals)
+    elif accumulate:
+        view.index_add_(0, idx.long(), vals.to(x.dtype).expand(
+            idx.shape + x.shape[1:]))
     else:
-        view.index_put_((idx.long(),), vals)
+        view.index_put_((idx.long(),), vals.to(x.dtype))
     return buf[:-1]
 
 
@@ -248,3 +257,92 @@ def insert_keyframe(state: MapState, R, t, frame_idx, kpts, desc, kp_valid,
         kf_db_idx=kf_db_idx, kf_db_desc=kf_db_desc, kf_db_xyz=kf_db_xyz,
         kf_db_valid=kf_db_valid, free_count=avail - n_from_free,
         pts_freed=pts_freed)
+
+
+def recycle_free_slots(state: MapState, min_age: int, budget: int,
+                       stale_age: int = 0) -> MapState:
+    """Push up to `budget` culled point slots onto the free stack.
+
+    Eligible slots hold culled (`pts_bad`) points not observed for
+    `min_age` keyframes: old enough that no window BA, re-observation pass
+    or BA snapshot can still reference them. Freed slots are invalidated and
+    their observation rows cleared, so every read path skips them.
+
+    `stale_age` > 0 adds eviction under pressure: when fewer than
+    2 x budget slots are available (fresh + stack), healthy points not
+    observed for `stale_age` keyframes become eligible too; well-observed
+    ones (the archive loop closing matches against) only once the archive
+    exceeds half the table.
+
+    Priority: culled slots first, then never-corroborated stale points
+    (obs_cnt < 3) oldest first, then archive points fewest-observations
+    first. The priorities are full of ties (-1 for every non-candidate,
+    equal ages) and which slots are freed decides the ids of every later
+    map point, so the ranking is `topk_stable` (ties to the lower index,
+    like `lax.top_k`)."""
+    Pmax = state.capacity_pts
+    dev = state.pts_xyz.device
+    budget = min(budget, Pmax)
+    age = state.num_kf - state.pts_last_kf
+    old = age > min_age
+    bad_cand = state.pts_valid & state.pts_bad & ~state.pts_freed & old
+    cand = bad_cand
+    low_obs = state.pts_obs_cnt < 3
+    if stale_age > 0:
+        available = (Pmax - state.num_pts) + state.free_count
+        pressure = available < 2 * budget
+        stale = state.pts_valid & ~state.pts_freed & (age > stale_age)
+        n_archive = (state.pts_valid & ~state.pts_bad & ~low_obs).to(
+            _I32).sum(dtype=_I32)
+        archive_over = n_archive > Pmax // 2
+        cand = cand | (stale & pressure & (low_obs | archive_over))
+    obs_rank = 64 - torch.clamp(state.pts_obs_cnt, 0, 64)   # fewest -> high
+    prio = torch.where(
+        cand,
+        torch.where(bad_cand, (1 << 24) + torch.clamp(age, 0, 1 << 18),
+                    torch.where(low_obs,
+                                (1 << 20) + torch.clamp(age, 0, 1 << 18),
+                                obs_rank * (1 << 12)
+                                + torch.clamp(age, 0, (1 << 12) - 1))), -1)
+    _, ids = topk_stable(prio, budget)
+    ids = ids.to(_I32)
+    ar = torch.arange(budget, dtype=_I32, device=dev)
+    # Stack-capacity guard (each slot appears at most once on the stack)
+    ok = cand[ids.long()] & (state.free_count + ar < Pmax)
+    n = ok.to(_I32).sum(dtype=_I32)
+    # Unique indices: top-k positions are distinct, the rest are dropped.
+    tgt = torch.where(ok, ids, Pmax)
+    pos = torch.where(ok, state.free_count + ar, Pmax)
+    return state._replace(
+        pts_valid=_scatter(state.pts_valid, tgt, False),
+        pts_freed=_scatter(state.pts_freed, tgt, True),
+        pts_obs_kf=_scatter(state.pts_obs_kf, tgt, -1),
+        pts_obs_kp=_scatter(state.pts_obs_kp, tgt, -1),
+        pts_obs_cnt=_scatter(state.pts_obs_cnt, tgt, 0),
+        pts_first_kf=_scatter(state.pts_first_kf, tgt, -1),
+        pts_last_kf=_scatter(state.pts_last_kf, tgt, -1),
+        free_stack=_scatter(state.free_stack, pos, ids),
+        free_count=state.free_count + n)
+
+
+def map_state_from_numpy(fields, device=None) -> MapState:
+    """Build a `MapState` from numpy arrays: `fields` is a mapping or a
+    named tuple with the `MapState` field names (for example the JAX
+    package's map state converted with `np.asarray`). Integer fields become
+    int32, float fields float32; bfloat16 arrays (descriptor tables) are
+    carried across exactly through float32."""
+    if hasattr(fields, "_asdict"):
+        fields = fields._asdict()
+    out = {}
+    for name in MapState._fields:
+        a = np.asarray(fields[name])
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        elif a.dtype == np.bool_:
+            t = torch.from_numpy(a.copy())
+        elif np.issubdtype(a.dtype, np.integer):
+            t = torch.from_numpy(a.astype(np.int32))
+        else:
+            t = torch.from_numpy(a.astype(np.float32))
+        out[name] = t.to(device)
+    return MapState(**out)

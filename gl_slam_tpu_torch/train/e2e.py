@@ -3,7 +3,7 @@
 Counterpart of the inference half of gl_slam_tpu/train/e2e.py: build the
 SuperPoint and LightGlue networks at the committed checkpoints' shapes,
 load their weights, and track a rendered sequence through the chunked
-pipeline. Training is not ported.
+pipeline with its periodic window BA. Training is not ported.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ class E2EResult(NamedTuple):
     mean_inliers: float
     mean_pose_cost: float
     total_new_points: int
+    num_ba_runs: int = 0
 
 
 def _load_frontend(ckpt_dir, tag, D, channels, lg_shape, device, dtype):
@@ -75,39 +76,46 @@ def render_stack(scene, n_frames: int, max_keypoints: int,
 
 
 def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
-                    chunk: int = 5, device=None, seed: int = 0,
+                    chunk: int = 5, ba_every: int = 3, device=None,
+                    seed: int = 0,
                     draws: Optional[Callable[[int], torch.Tensor]] = None,
                     stack: Optional[np.ndarray] = None,
-                    diag_out: Optional[dict] = None) -> E2EResult:
+                    diag_out: Optional[dict] = None,
+                    ba_diag: bool = False) -> E2EResult:
     """Bootstrap on frames 0-1, then track whole chunks of `chunk` frames of
-    `scene` (BA and loop closing must be off in `cfg`); ATE-RMSE of the
-    keyframe camera centres against ground truth. `stack`: pre-rendered
-    frames (else rendered here, outside the timed region). fps counts the
-    tracked frames after the bootstrap over the host wall time up to the
-    final device synchronisation. `diag_out` receives the per-frame outputs
-    and the trajectory."""
+    `scene`, with a window BA pass every `ba_every` frames (rounded to whole
+    chunks) when `cfg.runtime.run_full_ba` is on (loop closing must be off
+    in `cfg`); ATE-RMSE of the keyframe camera centres against ground
+    truth. `stack`: pre-rendered frames (else rendered here, outside the
+    timed region). fps counts the tracked frames after the bootstrap over
+    the host wall time up to the final device synchronisation. `diag_out`
+    receives the per-frame outputs, the trajectory, the recovery count and
+    the tracking state's size in bytes. `ba_diag` (off by default: it adds
+    two reprojection passes to every BA) also puts there, per BA pass,
+    `ba_reproj` (the window's mean reprojection error in px before and
+    after), `ba_lm_iters` (LM iterations before the carry froze) and
+    `ba_ms` (host time to issue the pass, and time between two CUDA events
+    around it or None on the CPU)."""
     dev = resolve_device(device)
     if stack is None:
         stack = render_stack(scene, n_frames, cfg.frontend.max_keypoints)
-    pipe = ChunkedPipeline(cfg, scene.K, sp, lg, chunk=chunk, seed=seed,
-                           device=dev, draws=draws)
+    pipe = ChunkedPipeline(cfg, scene.K, sp, lg, chunk=chunk,
+                           ba_every=ba_every, seed=seed, device=dev,
+                           draws=draws,
+                           ba_diag=diag_out is not None and ba_diag)
     c0 = -scene.poses_R[0].T @ scene.poses_t[0]
     c1 = -scene.poses_R[1].T @ scene.poses_t[1]
     pipe.bootstrap_from_images(stack[0], stack[1],
                                float(np.linalg.norm(c1 - c0)))
     frames = torch.from_numpy(stack[2:n_frames]).to(dev)
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    sync()
+    pipe.finish()
     t0 = time.perf_counter()
     start = 2
     while start + chunk <= n_frames:
         pipe.track_chunk(frames[start - 2:start - 2 + chunk], start)
         start += chunk
-    sync()
+    pipe.finish()
     wall = time.perf_counter() - t0
 
     o = pipe.stacked_outputs()
@@ -116,7 +124,18 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
     c_gt = np.stack([-scene.poses_R[i].T @ scene.poses_t[i] for i in fidx])
     ate = float(np.sqrt(((c_est - c_gt) ** 2).sum(1).mean()))
     if diag_out is not None:
-        diag_out.update(outputs=o, R=R_est, t=t_est, frame_idx=fidx)
+        diag_out.update(
+            outputs=o, R=R_est, t=t_est, frame_idx=fidx,
+            num_recoveries=pipe.num_recoveries,
+            state_bytes=sum(x.numel() * x.element_size() for x in
+                            (*pipe.state.map, *pipe.state[1:])))
+        if ba_diag:
+            diag_out.update(
+                ba_reproj=[(float(d.reproj_before), float(d.reproj_after))
+                           for d, _, _ in pipe.ba_log],
+                ba_lm_iters=[int(d.lm_iters) for d, _, _ in pipe.ba_log],
+                ba_ms=[(host, ev[0].elapsed_time(ev[1]) if ev else None)
+                       for _, host, ev in pipe.ba_log])
     oks = o.frame_ok
     return E2EResult(
         ate_m=ate, num_keyframes=len(fidx), num_frames=start,
@@ -125,4 +144,5 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
         num_rejected=int((~oks).sum()),
         mean_inliers=float(o.num_inliers.mean()),
         mean_pose_cost=float(o.pose_cost[oks].mean()) if oks.any() else 0.0,
-        total_new_points=int(o.num_new_points.sum()))
+        total_new_points=int(o.num_new_points.sum()),
+        num_ba_runs=pipe.num_ba_runs)

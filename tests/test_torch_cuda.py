@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, and a short run
+of the tracker with its backend, on the card.
 
 Without a CUDA device every test here skips: the kernels have no CPU mode.
 The file imports no JAX, so it also runs on the card's machine, without the
@@ -14,6 +15,9 @@ import torch
 from gl_slam_tpu_torch.ops import _build
 from gl_slam_tpu_torch.ops import assignment as t_asg
 from gl_slam_tpu_torch.ops import attention as t_attn
+from gl_slam_tpu_torch.ops import nms as t_nms
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -83,6 +87,90 @@ def test_assignment_kernel_matches_plain(cuda_device, B, N, M, Df):
     assert int(got[0][0, 1]) == 4 and int(got[3][0, 11]) == 7   # ties
 
 
+def _nms_maps(rng, B, H, W):
+    """Quantised random maps (ties everywhere) with exact zeros and plateaus
+    that cross the kernel's 32 x 64 tile borders and touch the image
+    border."""
+    heat = np.round(rng.uniform(size=(B, H, W)), 2).astype(np.float32)
+    heat[rng.uniform(size=heat.shape) < 0.3] = 0.0
+    heat[0, 28:37, 50:80] = 0.97            # across a tile corner
+    heat[0, :5, :7] = 0.99                  # image corner
+    heat[-1, H - 3:, W - 40:] = 0.98        # bottom border
+    heat[-1, H // 2, :] = 0.96              # a full row
+    return heat
+
+
+@pytest.mark.parametrize("B,H,W,r", [(2, 376, 1248, 4), (3, 70, 131, 3),
+                                     (1, 33, 64, 1), (2, 40, 40, 0),
+                                     (1, 97, 200, 16)])
+def test_nms_kernel_equals_plain(cuda_device, B, H, W, r):
+    heat = torch.from_numpy(_nms_maps(np.random.default_rng(7), B, H, W)).to(
+        cuda_device)
+    before = _build.LAUNCHES["nms"]
+    got = t_nms.nms(heat, r)
+    assert _build.LAUNCHES["nms"] == before + 1
+    # max and comparisons are exact: no tolerance
+    assert torch.equal(got, t_nms.nms_plain(heat, r))
+    # detection through the kernel, and through the plain version on the CPU
+    got = t_nms.detect_keypoints(heat, 256, 0.05, r)
+    want = t_nms.detect_keypoints(heat.cpu(), 256, 0.05, r)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+def test_short_ba_run_on_the_card(cuda_device):
+    """The tiny pipeline with a BA pass every chunk, on the card: extraction
+    through the NMS kernel, two BA passes, no rollback; then one BA pass on
+    the final map on the card against the same pass on the CPU."""
+    import dataclasses
+    import os
+
+    from gl_slam_tpu_torch import config as t_cfg
+    from gl_slam_tpu_torch.io import synthetic
+    from gl_slam_tpu_torch.slam import ba as t_ba
+    from gl_slam_tpu_torch.slam.chunk_driver import ChunkedPipeline
+    from gl_slam_tpu_torch.train import e2e
+
+    ckpt = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
+    H, W, N, D = 240, 320, 128, t_cfg.TINY_DESC_DIM
+    cfg = t_cfg.micro_config(H, W, N, D)
+    cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime,
+                                                  loop_closing=False))
+    scene = synthetic.make_scene(num_landmarks=900, num_frames=12, height=H,
+                                 width=W, desc_dim=D, seed=11)
+    stack = e2e.render_stack(scene, 12, N)
+    # bfloat16 networks: the attention kernel takes nothing else
+    sp, lg = e2e.load_tiny_frontend(ckpt, device=cuda_device)
+    pipe = ChunkedPipeline(cfg, scene.K, sp, lg, chunk=5, ba_every=5,
+                           device=cuda_device)
+    c = [-scene.poses_R[i].T @ scene.poses_t[i] for i in (0, 1)]
+    before = _build.LAUNCHES["nms"]
+    pipe.bootstrap_from_images(stack[0], stack[1],
+                               float(np.linalg.norm(c[1] - c[0])))
+    pipe.track_chunk(stack[2:7])
+    pipe.track_chunk(stack[7:12])
+    pipe.finish()
+    assert _build.LAUNCHES["nms"] == before + 3     # one per extraction
+    assert pipe.num_ba_runs == 2 and pipe.num_recoveries == 0
+    R, t, fidx = pipe.trajectory()
+    assert list(fidx) == list(range(12))
+    assert np.isfinite(R).all() and np.isfinite(t).all()
+    c_est = np.einsum('kij,kj->ki', R.transpose(0, 2, 1), -t)
+    c_gt = np.stack([-scene.poses_R[i].T @ scene.poses_t[i] for i in fidx])
+    assert float(np.sqrt(((c_est - c_gt) ** 2).sum(1).mean())) < 1.0
+
+    m = pipe.state.map
+    K = pipe.K
+    on_card = t_ba.ba_step(cfg, K, m, 2, 10)
+    on_cpu = t_ba.ba_step(cfg, K.cpu(), type(m)(*(x.cpu() for x in m)), 2, 10)
+    # float32 in other summation orders (see tests/test_torch_backend.py)
+    assert float((on_card.kf_R.cpu() - on_cpu.kf_R).abs().max()) < 1e-4
+    assert float((on_card.kf_t.cpu() - on_cpu.kf_t).abs().max()) < 1e-3
+    dist = on_cpu.pts_xyz.norm(dim=1, keepdim=True) + 1.0
+    assert float(((on_card.pts_xyz.cpu() - on_cpu.pts_xyz).abs()
+                  / dist).max()) < 1e-2
+    assert int((on_card.pts_bad.cpu() != on_cpu.pts_bad).sum()) <= 3
+
+
 def test_kernels_reject_what_they_do_not_take(cuda_device):
     q = torch.zeros(2, 8, 48, dtype=torch.bfloat16, device=cuda_device)
     m = torch.ones(8, dtype=torch.bool, device=cuda_device)
@@ -90,3 +178,10 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
         t_attn.attention_cuda(q, q, q, m, 0.1)
     with pytest.raises(ValueError, match="bfloat16"):
         t_attn.attention_cuda(q.float(), q.float(), q.float(), m, 0.1)
+    heat = torch.zeros(2, 16, 24, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        t_nms.nms(heat.double(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_nms.nms(heat.transpose(1, 2), 2)
+    with pytest.raises(ValueError, match="radius"):
+        t_nms.nms(heat, 17)

@@ -1,6 +1,6 @@
-"""The port's two kernel modules against the JAX package, on the CPU.
+"""The port's three kernel modules against the JAX package, on the CPU.
 
-gl_slam_tpu_torch/ops/{attention,assignment}.py each hold a CUDA kernel
+gl_slam_tpu_torch/ops/{attention,assignment,nms}.py each hold a CUDA kernel
 and its plain PyTorch version. Here (no card) the plain versions are held
 against the JAX reference: the Pallas kernels in interpret mode and their
 XLA versions. Inputs come from a numpy seed; the JAX side runs in float32
@@ -18,9 +18,11 @@ import jax.numpy as jnp
 
 from gl_slam_tpu.ops import assignment as j_asg
 from gl_slam_tpu.ops import attention as j_attn
+from gl_slam_tpu.ops import nms as j_nms
 from gl_slam_tpu_torch.ops import _build
 from gl_slam_tpu_torch.ops import assignment as t_asg
 from gl_slam_tpu_torch.ops import attention as t_attn
+from gl_slam_tpu_torch.ops import nms as t_nms
 
 # Small shapes: one ATen thread per test worker keeps the parallel suite
 # from oversubscribing the cores.
@@ -179,6 +181,68 @@ def test_fused_assignment_matches_jax_xla():
     assert int(got.matches0[0, 1]) == 4      # the constructed match
 
 
+def _nms_map(case):
+    """(heat (B, H, W) float32 >= 0, radius)."""
+    rng = np.random.default_rng(20)
+    if case == "random":
+        return rng.uniform(size=(2, 48, 64)).astype(np.float32), 2
+    if case == "quantised with zeros":
+        heat = np.round(rng.uniform(size=(2, 40, 72)), 1).astype(np.float32)
+        heat[rng.uniform(size=heat.shape) < 0.4] = 0.0
+        return heat, 3
+    if case == "plateau":                  # tests/test_flags.py, 8 x 32
+        heat = np.zeros((1, 32, 64), np.float32)
+        heat[0, 8:16, 8:40] = 0.5
+        return heat, 4
+    if case == "border plateau":
+        heat = np.round(rng.uniform(size=(2, 33, 65)), 1).astype(np.float32)
+        heat[0, :6, :9] = 2.0              # top-left corner
+        heat[0, 28:, 50:] = 2.0            # bottom-right corner
+        heat[1, :, 64] = 3.0               # the last column
+        heat[1, 0, :] = 3.0                # the first row
+        return heat, 4
+    raise ValueError(case)
+
+
+NMS_CASES = ["random", "quantised with zeros", "plateau", "border plateau"]
+
+
+@pytest.mark.parametrize("case", NMS_CASES)
+def test_nms_plain_matches_pallas_interpret_and_xla(case):
+    heat, r = _nms_map(case)
+    got = t_nms.nms(torch.from_numpy(heat), r).numpy()
+    # max is exact and the tie-break is on integers: exact equality. The
+    # Pallas kernel pads with 0.0, the others with -inf; heat >= 0.
+    np.testing.assert_array_equal(
+        got, np.asarray(j_nms._nms_pallas(jnp.asarray(heat), r,
+                                          interpret=True)))
+    np.testing.assert_array_equal(
+        got, np.asarray(j_nms._nms_xla(jnp.asarray(heat), r)))
+    assert (got > 0).sum() >= 1
+    # survivors pairwise Chebyshev-separated by more than r
+    for b in range(heat.shape[0]):
+        yx = np.argwhere(got[b] > 0)
+        d = np.abs(yx[:, None] - yx[None]).max(-1)
+        assert (d[np.triu_indices(len(yx), 1)] > r).all()
+
+
+@pytest.mark.parametrize("case", NMS_CASES)
+def test_detect_keypoints_matches_jax_through_both_nms(case, monkeypatch):
+    import functools
+    heat, r = _nms_map(case)
+    kt, st, vt = t_nms.detect_keypoints(torch.from_numpy(heat), 48, 0.05, r)
+    ref_xla = j_nms.detect_keypoints(jnp.asarray(heat), 48, 0.05, r)
+    # the reference's opt-in route, run as its own tests run the kernel here
+    monkeypatch.setattr(j_nms, "_nms_pallas", functools.partial(
+        j_nms._nms_pallas, interpret=True))
+    ref_pl = j_nms.detect_keypoints(jnp.asarray(heat), 48, 0.05, r,
+                                    use_pallas=True)
+    for kj, sj, vj in (ref_xla, ref_pl):
+        np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+        np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+        np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+
+
 def test_wrappers_take_plain_version_only_for_cpu_tensors():
     """A CPU tensor runs the plain version and counts no launch; a CUDA
     tensor never reaches the plain version (checked on the card below)."""
@@ -189,7 +253,8 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors():
     f0, f1, z0, z1, m0, m1 = _asg_inputs(rng, 1, 24, 24, 64)
     t_asg.fused_assignment(*(torch.from_numpy(a) for a in
                              (f0, f1, z0, z1, m0, m1)), 0.125)
-    assert _build.LAUNCHES == {"attention": 0, "assignment": 0}
+    t_nms.detect_keypoints(torch.rand(1, 24, 32), 16, 0.1, 2)
+    assert _build.LAUNCHES == {"attention": 0, "assignment": 0, "nms": 0}
 
 
 def test_cuda_wrappers_reject_cpu_tensors():
@@ -201,3 +266,5 @@ def test_cuda_wrappers_reject_cpu_tensors():
     m = torch.ones(8, dtype=torch.bool)
     with pytest.raises(ValueError):
         t_asg.fused_reductions_cuda(f, f, c, c, m, m, 0.1)
+    with pytest.raises(ValueError):
+        t_nms.nms_cuda(torch.zeros(1, 8, 8), 2)

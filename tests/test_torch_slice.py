@@ -1,9 +1,10 @@
 """The whole slice: the chunked learned tracker in JAX and in the port.
 
-Both run the micro pipeline (committed tiny weights, BA and loop closing
-off, centroid sub-pixel refinement) over the same rendered frames: a
-bootstrap plus two chunks of 8. The port's RANSAC draws are the
-reference's own: the JAX key recurrence (bootstrap `split(key)`, then
+Both run the micro pipeline (committed tiny weights, loop closing off,
+centroid sub-pixel refinement) over the same rendered frames: a bootstrap
+plus two chunks of 8, once with BA off and once with a window BA pass
+(with slot recycling and the health check) every 8 frames. The port's
+RANSAC draws are the reference's own: the JAX key recurrence (bootstrap `split(key)`, then
 `split(key, 3)` per frame) is replayed here and each frame's
 `jax.random.uniform(k_ess, (hypotheses, 8))` is fed to the port through
 ChunkedPipeline's `draws`.
@@ -35,13 +36,14 @@ CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
 H, W, N, NF, CHUNK = 240, 320, 128, 18, 8
 
 
-def _no_backend(cfg):
+def _backend(cfg, ba):
     return dataclasses.replace(cfg, runtime=dataclasses.replace(
-        cfg.runtime, run_full_ba=False, loop_closing=False))
+        cfg.runtime, run_full_ba=ba, loop_closing=False))
 
 
-@pytest.fixture(scope="module")
-def both_runs():
+def _both_runs(ba):
+    """(JAX per-frame outputs, port per-frame outputs, port E2EResult, JAX
+    pipeline) of one run of each side, with or without BA."""
     D = j_e2e.TINY_DESC_DIM
     # The held-out scene of tests/test_learned_e2e.py
     scene = synthetic.make_scene(num_landmarks=900, num_frames=NF,
@@ -54,10 +56,10 @@ def both_runs():
     sp, spp, lg, lgp = j_e2e.load_tiny_frontend(CKPT)
     sp = sp.clone(dtype=jnp.float32)
     lg = lg.clone(dtype=jnp.float32)
-    cfg = _no_backend(j_e2e.micro_config(H, W, N, D))
+    cfg = _backend(j_e2e.micro_config(H, W, N, D), ba)
     jp = JPipeline(cfg, jnp.asarray(scene.K, jnp.float32), sp, lg,
                    j_fused.FusedParams(sp=spp, lg=lgp), chunk=CHUNK,
-                   enable_ba=False)
+                   ba_every=CHUNK, enable_ba=ba)
     jp.bootstrap_from_images(stack[0], stack[1], scale)
     for s in range(2, NF, CHUNK):
         jp.track_chunk(jnp.asarray(stack[s:s + CHUNK]), s)
@@ -78,13 +80,24 @@ def both_runs():
 
     tsp, tlg = t_e2e.load_tiny_frontend(CKPT, device="cpu",
                                         dtype=torch.float32)
-    tcfg = _no_backend(t_cfg.micro_config(H, W, N, D))
+    tcfg = _backend(t_cfg.micro_config(H, W, N, D), ba)
     diag = {}
     res = t_e2e.run_learned_e2e(tsp, tlg, scene, tcfg, NF, chunk=CHUNK,
-                                device="cpu", draws=feed, stack=stack,
-                                diag_out=diag)
+                                ba_every=CHUNK, device="cpu", draws=feed,
+                                stack=stack, diag_out=diag, ba_diag=ba)
     assert pos[0] == NF - 1          # every reference draw was consumed
+    return ref, diag, res, jp
+
+
+@pytest.fixture(scope="module")
+def both_runs():
+    ref, diag, res, _ = _both_runs(ba=False)
     return ref, diag["outputs"], res
+
+
+@pytest.fixture(scope="module")
+def both_runs_ba():
+    return _both_runs(ba=True)
 
 
 def test_slice_poses_match_jax(both_runs):
@@ -122,10 +135,57 @@ def test_slice_tracks(both_runs):
     assert res.ate_m < 1.0, res
 
 
+def test_ba_slice_runs_ba_like_jax(both_runs_ba):
+    ref, diag, res, jp = both_runs_ba
+    assert res.num_ba_runs == jp.num_ba_runs == 2
+    assert diag["num_recoveries"] == jp.num_recoveries == 0
+    assert res.num_keyframes == NF and res.num_rejected == 0
+    assert res.mean_matches > 50 and res.ate_m < 1.0, res
+    # each pass lowers the mean reprojection error of its window
+    assert len(diag["ba_reproj"]) == 2
+    for before, after in diag["ba_reproj"]:
+        assert after < before, diag["ba_reproj"]
+
+
+def test_ba_slice_poses_match_jax(both_runs_ba):
+    ref, diag, _, jp = both_runs_ba
+    got = diag["outputs"]
+    # As test_slice_poses_match_jax: float32 in other summation orders, the
+    # first chunk (before any BA) to 1e-3; the second chunk starts from the
+    # BA-refined map and carry of each side, within the same 5e-2 m.
+    np.testing.assert_allclose(got.R, ref.R, atol=1e-3)
+    np.testing.assert_allclose(got.t[:CHUNK], ref.t[:CHUNK], atol=1e-3)
+    np.testing.assert_allclose(got.t, ref.t, atol=5e-2)
+    # the maps after the second BA pass and its recycling
+    jR, jt, jidx = jp.trajectory()
+    np.testing.assert_array_equal(diag["frame_idx"], jidx)
+    np.testing.assert_allclose(diag["R"], jR, atol=1e-3)
+    np.testing.assert_allclose(diag["t"], jt, atol=5e-2)
+
+
+def test_ba_slice_counts_match_jax(both_runs_ba):
+    ref, diag, _, _ = both_runs_ba
+    got = diag["outputs"]
+    np.testing.assert_array_equal(got.frame_ok, ref.frame_ok)
+    np.testing.assert_array_equal(got.num_matches, ref.num_matches)
+    # As test_slice_counts_match_jax: threshold decisions under another
+    # summation order, at most 2 per frame, in few frames.
+    d = np.abs(got.num_inliers.astype(int) - ref.num_inliers.astype(int))
+    assert d.max() <= 2 and (d > 0).sum() <= 2, (got.num_inliers,
+                                                    ref.num_inliers)
+    dm = np.abs(got.num_map_matches.astype(int)
+                - ref.num_map_matches.astype(int))
+    assert dm.max() <= 2 and (dm > 0).sum() <= 2, (got.num_map_matches,
+                                                     ref.num_map_matches)
+
+
 def test_backend_stages_raise_instead_of_skipping():
     cfg = t_cfg.micro_config(H, W, N, 64)
-    with pytest.raises(NotImplementedError, match="window BA"):
-        ChunkedPipeline(cfg, np.eye(3), None, None, device="cpu")
     with pytest.raises(NotImplementedError, match="loop closing"):
         ChunkedPipeline(cfg, np.eye(3), None, None, device="cpu",
                         enable_ba=False)
+    sp, lg = t_e2e.load_tiny_frontend(CKPT, device="cpu",
+                                      dtype=torch.float32)
+    pipe = ChunkedPipeline(_backend(cfg, ba=True), np.eye(3), sp, lg,
+                           device="cpu")
+    assert pipe.enable_ba and pipe.num_ba_runs == 0
