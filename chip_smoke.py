@@ -196,11 +196,14 @@ def check_attention(torch, gen, dev, report):
         nbytes = 2 * (q.numel() + k.numel() + v.numel()) + mask.numel() \
             + 4 * out.numel()
         H = q.shape[-3]
+        q_tile, splits = A.split_plan(lead, Nq, Nk)
+        ctas = -(-Nq // q_tile) * lead * splits
         q4, k4, v4 = (x.reshape(-1, H, *x.shape[-2:]) for x in (q, k, v))
         bias = torch.where(mask.reshape(-1, Nk), 0.0, -1e9).to(
             torch.bfloat16)[:, None, None, :]
         row = dict(
-            shape=name, max_abs_err=err, max_err_over_bound=over,
+            shape=name, splits=splits, ctas=ctas, max_abs_err=err,
+            max_err_over_bound=over,
             median_ref_over_bound=strength, masked_set_err_over_bound=uni_err,
             ms=time_ms(lambda: A.attention_cuda(q, k, v, mask, scale)),
             plain_ms=time_ms(lambda: A.attention_plain(q, k, v, mask, scale),
@@ -210,7 +213,8 @@ def check_attention(torch, gen, dev, report):
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
         report.append(row)
         del tol, diff
-        print(f"  attention {name}: max|err| {err:.3g}, <= {over:.3g} x the "
+        print(f"  attention {name}: key split S={splits}, {ctas} CTAs; "
+              f"max|err| {err:.3g}, <= {over:.3g} x the "
               f"bound, median|ref| {strength:.3g} x the bound; kernel "
               f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa "
               f"{row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms "

@@ -4,41 +4,276 @@
 // (_attn_kernel). That kernel keeps one head's whole K and V resident in
 // VMEM and computes one (query tile x all keys) logits tile at once. On the
 // H100 a block has at most 227 KB of shared memory, and one head's K and V at
-// Nk = 2048, dh = 128 in bf16 take 512 KB each, so this is a flash-style
-// kernel instead: K/V are streamed through shared memory in 64-key tiles and
-// the softmax is computed online (running row max and sum in f32).
+// Nk = 2048, dh = 128 in bf16 take 512 KB each, so K and V stream through
+// shared memory in key tiles and the softmax runs online (running row max
+// and sum in f32).
 //
 // What bounds it: the prologue calls (8 pairs x 2 sets x 2 heads, Nq = Nk =
-// 2048, dh = 128) do ~69 GFLOP against ~25 MB of traffic, i.e. they are
-// bound by tensor-core operations (>= 70 us at 989 TFLOP/s bf16). The
-// re-observation calls (1 set x 2 heads, 1024/2048 queries) are ~1 GFLOP
-// each and sit near launch latency. The design therefore feeds the tensor
-// cores: q.k^T and p.v run as bf16 mma.sync.m16n8k16 with f32 accumulation,
-// the logits never leave registers, and P is converted from the accumulator
-// layout straight into the A-operand layout of the second product. wgmma,
-// TMA and warp specialisation are later work.
+// 2048, dh = 128) do ~69 GFLOP against ~25 MB of traffic: bound by
+// tensor-core operations (>= 70 us at 989 TFLOP/s bf16). The re-observation
+// calls (1 set x 2 heads, 1024/2048 queries and keys) do 1-4 GFLOP each,
+// but give only 32-64 query tiles, so a CTA per tile leaves most of the
+// 132 SMs idle. The design, in the order the time is lost:
+//
+// 1. Key split. ops/attention.split_plan picks S in {1, 2, 4, 8} so that
+//    ceil(Nq/64) * BH * S CTAs fill about one wave. The grid is
+//    (S, ceil(Nq/64), BH) in clusters of S CTAs over one query tile; CTA s
+//    walks key tiles [s T / S, (s + 1) T / S) of the T = ceil(Nk/64) and
+//    keeps its partial (m, l, O) in shared memory. After a cluster barrier
+//    CTA s combines rows [s 64/S, (s + 1) 64/S) of all S partials, read over
+//    distributed shared memory in rank order (deterministic), and stores
+//    them. One launch per call; S = 1 is the same path with a cluster of one.
+// 2. Asynchronous copies. One producer warp issues TMA copies (3-d tensor
+//    maps over (dh, N, BH), encoded on the host per call) of the Q tile once
+//    and of 64-key K and V tiles into a 2-stage ring with full/empty
+//    mbarriers; TMA zero-fills rows past Nq and Nk. Tiles land in the
+//    128-byte swizzle (64-byte for dh = 32) in column chunks of 64 (32) bf16.
+// 3. wgmma. One consumer warpgroup owns the 64 query rows. S = Q K^T is
+//    wgmma m64n64k16 with Q and K from shared memory, both K-major. O += P V
+//    is wgmma m64n{dh}k16 with P from registers (the f32 S accumulator,
+//    masked, exponentiated and packed to bf16 in place: its layout is the
+//    register-A layout) and V from shared memory as stored, [key][d], read
+//    N-major through wgmma's transpose flag.
+// Sizes: Q tile 64, key tile 64, 2 stages, 1 consumer warpgroup + 1 producer
+// warp (160 threads); 84 KB of shared memory at dh = 128, so two CTAs
+// share an SM and one's softmax overlaps the other's products.
 //
 // Numerics follow the reference: logits = (q.k) * scale in f32, masked keys
-// are -1e9 (not -inf, so a row whose keys are all masked averages v), the
-// softmax sum is clamped at >= 1e-20, p is rounded to bf16 before the product
-// with v, the output is f32. Keys past Nk (ragged last tile) are excluded
-// with -inf and zero-filled K/V rows.
+// are -1e9 (not -inf, so a row whose keys are all masked averages v), keys
+// past Nk are -inf, the softmax sum is clamped at >= 1e-20, p is rounded to
+// bf16 before the product with v (relative to its split's running max), the
+// output is f32. A split's all-masked keys give m = -1e9 and weigh
+// exp(-1e9 - M) = 0 in the combine unless every key of the set is masked;
+// a split with no key below Nk (which split_plan never makes) weighs 0.
 //
-// Layouts: q (BH, Nq, DH), k/v (BH, Nk, DH) bf16 contiguous; mask (B, Nk)
-// uint8 with B = BH / H; out (BH, Nq, DH) f32. One block per (64-query tile,
-// batch*head); 4 warps, 16 query rows each.
+// Layouts: q (BH, Nq, DH), k/v (BH, Nk, DH) bf16 contiguous, 16-byte
+// aligned; mask (B, Nk) uint8 with B = BH / H; out (BH, Nq, DH) f32.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
+#ifndef ATTN_WGMMA_S
+#define ATTN_WGMMA_S 1
+#endif
+#ifndef ATTN_WGMMA_PV
+#define ATTN_WGMMA_PV 1
+#endif
+
 namespace {
 
-constexpr int kRowsPerWarp = 16;
-constexpr int kWarps = 4;
-constexpr int kQTile = kRowsPerWarp * kWarps;  // 64 queries per block
-constexpr int kKTile = 64;                     // keys per shared-memory tile
+constexpr int kQTile = 64;   // query rows per CTA
+constexpr int kKTile = 64;   // keys per ring stage
+constexpr int kStages = 2;
+constexpr int kConsumers = 128;              // one warpgroup
+constexpr int kThreads = kConsumers + 32;    // + the producer warp
+constexpr int kMaxSplits = 8;
 constexpr float kMasked = -1e9f;
+
+// Shared-memory geometry for head dim DH.
+template <int DH>
+struct Geo {
+  static constexpr int CC = DH < 64 ? DH : 64;  // bf16 columns per chunk
+  static constexpr int SWB = CC * 2;            // bytes per chunk row
+  static constexpr int CHUNKS = DH / CC;
+  static constexpr uint32_t SWZ = SWB == 128 ? 7 : 3;      // swizzle mask
+  static constexpr uint64_t LAYOUT = SWB == 128 ? 1 : 2;   // wgmma swizzle
+  static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
+      SWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  static constexpr int Q_BYTES = kQTile * DH * 2;
+  static constexpr int KV_BYTES = kKTile * DH * 2;         // K or V tile
+  static constexpr int Q_CHUNK = kQTile * SWB;
+  static constexpr int KV_CHUNK = kKTile * SWB;
+  static constexpr int OFF_RING = Q_BYTES;                 // K0 V0 K1 V1
+  static constexpr int OFF_BARS = OFF_RING + kStages * 2 * KV_BYTES;
+  static constexpr int OFF_ML = OFF_BARS + 64;             // m[64], l[64]
+  static constexpr int OFF_W = OFF_ML + 2 * kQTile * 4;    // w[64][8], inv
+  static constexpr int END = OFF_W + kQTile * (kMaxSplits + 1) * 4;
+  static constexpr int SMEM = END + 1024;                  // + alignment
+  static constexpr int PART_STRIDE = DH + 4;               // f32 partial O
+  static_assert(kQTile * PART_STRIDE * 4 <= kStages * 2 * KV_BYTES,
+                "the partial O reuses the ring");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase differs from `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// TMA: box (c0 = column, c1 = row, c2 = bh) of `map` into shared `dst`,
+// completion counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start, leading and stride byte offsets,
+// swizzle mode.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from touching accumulator registers across an
+// asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d[32] (+)= A (64 x 16) B (16 x 64), both from shared memory, K-major.
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float* d, uint64_t da,
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[16] += A (64 x 16, registers) B (16 x 32, shared memory, N-major).
+__device__ __forceinline__ void wgmma_rs_m64n32k16(float* d, const uint32_t* a,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "n"(1));
+}
+
+// d[32] += A (64 x 16, registers) B (16 x 64, shared memory, N-major).
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float* d, const uint32_t* a,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "n"(1));
+}
+
+// d[64] += A (64 x 16, registers) B (16 x 128, shared memory, N-major).
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float* d, const uint32_t* a,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "n"(1));
+}
+
+
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (DH == 32) wgmma_rs_m64n32k16(o, a, db);
+  else if constexpr (DH == 64) wgmma_rs_m64n64k16(o, a, db);
+  else wgmma_rs_m64n128k16(o, a, db);
+}
 
 __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
                                                const uint32_t* b) {
@@ -49,185 +284,377 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Byte offset of element (row, col) in a swizzled tile of `rows` rows.
+template <int DH>
+__device__ __forceinline__ uint32_t swz(int rows, int row, int col) {
+  using G = Geo<DH>;
+  uint32_t off = row * G::SWB + (col % G::CC) * 2;
+  off ^= ((off >> 7) & G::SWZ) << 4;
+  return (col / G::CC) * rows * G::SWB + off;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kThreads, 2)
+attention_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
                  const uint8_t* __restrict__ mask, float* __restrict__ out,
                  int H, int Nq, int Nk, float scale) {
-  // Row strides padded by 8 bf16 so the fragment reads below hit 32
-  // distinct banks (row stride in 32-bit words = 4 mod 32).
-  constexpr int KS = DH + 8;      // K tile: [key][d]
-  constexpr int VS = kKTile + 8;  // V tile, transposed: [d][key]
-  __shared__ __align__(16) __nv_bfloat16 k_s[kKTile * KS];
-  __shared__ __align__(16) __nv_bfloat16 vt_s[DH * VS];
-  __shared__ int8_t key_state[kKTile];  // 1 valid, 0 masked, -1 past Nk
+  using G = Geo<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  // Swizzled tiles need 1024-byte alignment.
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t s_q = smem_u32(smem);
+  const uint32_t s_ring = s_q + G::OFF_RING;
+  const uint32_t s_bars = s_q + G::OFF_BARS;
+  // bars: full[kStages], empty[kStages], q
+  auto full = [&](int s) { return s_bars + 8 * s; };
+  auto empty = [&](int s) { return s_bars + 8 * (kStages + s); };
+  const uint32_t qbar = s_bars + 8 * 2 * kStages;
+  auto k_tile = [&](int s) { return s_ring + 2 * s * G::KV_BYTES; };
+  auto v_tile = [&](int s) { return k_tile(s) + G::KV_BYTES; };
+  float* part = reinterpret_cast<float*>(smem + G::OFF_RING);
+  float* part_m = reinterpret_cast<float*>(smem + G::OFF_ML);
+  float* part_l = part_m + kQTile;
+  float* wts = reinterpret_cast<float*>(smem + G::OFF_W);
+  float* inv = wts + kQTile * kMaxSplits;
 
-  const int bh = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row group
-  const int t = lane % 4;  // thread in group
-  const int row0 = blockIdx.x * kQTile + warp * kRowsPerWarp;
-  const __nv_bfloat16* qh = q + (size_t)bh * Nq * DH;
-  const __nv_bfloat16* kh = k + (size_t)bh * Nk * DH;
-  const __nv_bfloat16* vh = v + (size_t)bh * Nk * DH;
-  const uint8_t* mrow = mask + (size_t)(bh / H) * Nk;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = gridDim.x, rank = blockIdx.x;
+  const int q0 = blockIdx.y * kQTile, bh = blockIdx.z;
+  const int n_tiles = (Nk + kKTile - 1) / kKTile;
+  const int t_begin = rank * n_tiles / splits;
+  const int t_count = (rank + 1) * n_tiles / splits - t_begin;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // Q fragments (A operand, rows row0+g and row0+g+8), kept in registers.
-  uint32_t qa[DH / 16][4];
-  {
-    const int ra = row0 + g, rb = row0 + g + 8;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      const int c = kk * 16 + t * 2;
-      qa[kk][0] = ra < Nq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)ra * DH + c) : 0u;
-      qa[kk][1] = rb < Nq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)rb * DH + c) : 0u;
-      qa[kk][2] = ra < Nq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)ra * DH + c + 8) : 0u;
-      qa[kk][3] = rb < Nq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)rb * DH + c + 8) : 0u;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
     }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float o[DH / 8][4];
-#pragma unroll
-  for (int i = 0; i < DH / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // rows g, g+8
-  float l_run[2] = {0.f, 0.f};              // this thread's share of the sum
-
-  for (int j0 = 0; j0 < Nk; j0 += kKTile) {
-    __syncthreads();  // previous tile fully consumed
-    // Cooperative load: 16-byte vectors, K as is, V transposed.
-    constexpr int kVecPerRow = DH / 8;
-    for (int idx = threadIdx.x; idx < kKTile * kVecPerRow; idx += kWarps * 32) {
-      const int r = idx / kVecPerRow;
-      const int c = (idx % kVecPerRow) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-      if (j0 + r < Nk) {
-        kv = *reinterpret_cast<const uint4*>(kh + (size_t)(j0 + r) * DH + c);
-        vv = *reinterpret_cast<const uint4*>(vh + (size_t)(j0 + r) * DH + c);
+  if (warp == kConsumers / 32) {
+    // Producer: the Q tile once, then K and V tiles through the ring.
+    if (lane == 0) {
+      mbar_expect_tx(qbar, G::Q_BYTES);
+      for (int c = 0; c < G::CHUNKS; ++c)
+        tma_load(s_q + c * G::Q_CHUNK, &tm_q, qbar, c * G::CC, q0, bh);
+      for (int it = 0; it < t_count; ++it) {
+        const int s = it % kStages;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * G::KV_BYTES);
+        const int j0 = (t_begin + it) * kKTile;
+        for (int c = 0; c < G::CHUNKS; ++c) {
+          tma_load(k_tile(s) + c * G::KV_CHUNK, &tm_k, full(s), c * G::CC,
+                   j0, bh);
+          tma_load(v_tile(s) + c * G::KV_CHUNK, &tm_v, full(s), c * G::CC,
+                   j0, bh);
+        }
       }
-      *reinterpret_cast<uint4*>(&k_s[r * KS + c]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt_s[(c + e) * VS + r] = ve[e];
     }
-    for (int r = threadIdx.x; r < kKTile; r += kWarps * 32)
-      key_state[r] = (j0 + r < Nk) ? (mrow[j0 + r] ? 1 : 0) : -1;
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys).
-    float s[kKTile / 8][4];
+    __syncwarp();
+  } else {
+    // Consumer warpgroup: warp w owns rows 16w + g and 16w + g + 8 of the
+    // accumulators (g = lane / 4); thread t = lane % 4 holds columns
+    // 8 n + 2 t and 8 n + 2 t + 1 of each 8-column block n.
+    const int g = lane / 4, t = lane % 4;
+    const uint8_t* mrow = mask + (size_t)(bh / H) * Nk;
+    float o[DH / 2];
 #pragma unroll
-    for (int nt = 0; nt < kKTile / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* krow = &k_s[(nt * 8 + g) * KS + t * 2];
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+    mbar_wait(qbar, 0);
+    __syncwarp();
+
+    for (int it = 0; it < t_count; ++it) {
+      const int s = it % kStages;
+      const int j0 = (t_begin + it) * kKTile;
+      // This tile's mask bits, read while its copy is in flight.
+      const uint64_t valid =
+          (uint64_t)__ballot_sync(~0u, j0 + lane < Nk && mrow[j0 + lane]) |
+          (uint64_t)__ballot_sync(~0u, j0 + 32 + lane < Nk &&
+                                           mrow[j0 + 32 + lane]) << 32;
+      const int n_in = Nk - j0;  // keys of the tile below Nk
+      mbar_wait(full(s), (it / kStages) & 1);
+      __syncwarp();  // the products below are warp-aligned
+
+      // S = Q K^T: 64 rows x 64 keys, k-steps of 16 along the head dim.
+      float sacc[kKTile / 2];
+#if !ATTN_WGMMA_S
+      {
+        const uint8_t* qs = smem;
+        const uint8_t* ks_ = smem + (k_tile(s) - s_q);
+        const int r = warp * 16 + g;
+#pragma unroll
+        for (int i = 0; i < kKTile / 2; ++i) sacc[i] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          const int c = kk * 16 + 2 * t;
+          uint32_t a[4];
+          a[0] = *(const uint32_t*)(qs + swz<DH>(kQTile, r, c));
+          a[1] = *(const uint32_t*)(qs + swz<DH>(kQTile, r + 8, c));
+          a[2] = *(const uint32_t*)(qs + swz<DH>(kQTile, r, c + 8));
+          a[3] = *(const uint32_t*)(qs + swz<DH>(kQTile, r + 8, c + 8));
+#pragma unroll
+          for (int n = 0; n < kKTile / 8; ++n) {
+            uint32_t b[2];
+            b[0] = *(const uint32_t*)(ks_ + swz<DH>(kKTile, n * 8 + g, c));
+            b[1] = *(const uint32_t*)(ks_ + swz<DH>(kKTile, n * 8 + g, c + 8));
+            mma_bf16_16816(sacc + 4 * n, a, b);
+          }
+        }
+      }
+#else
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
-        uint32_t b[2];
-        b[0] = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-        b[1] = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-        mma_bf16_16816(s[nt], qa[kk], b);
+        const uint32_t off = (kk * 16 % G::CC) * 2;
+        const int chunk = kk * 16 / G::CC;
+        wgmma_ss_m64n64k16(
+            sacc,
+            make_desc(s_q + chunk * G::Q_CHUNK + off, 16, 8 * G::SWB,
+                      G::LAYOUT),
+            make_desc(k_tile(s) + chunk * G::KV_CHUNK + off, 16, 8 * G::SWB,
+                      G::LAYOUT),
+            kk > 0);
       }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<kKTile / 2>(sacc);
+#endif
+
+      // Scale, mask, tile row max.
+      float m_tile[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < kKTile / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = n * 8 + t * 2 + (e & 1);
+          float x = sacc[4 * n + e] * scale;
+          x = j >= n_in ? -INFINITY : ((valid >> j) & 1 ? x : kMasked);
+          sacc[4 * n + e] = x;
+          m_tile[e >> 1] = fmaxf(m_tile[e >> 1], x);
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m_tile[h] = fmaxf(m_tile[h], __shfl_xor_sync(~0u, m_tile[h], 1));
+        m_tile[h] = fmaxf(m_tile[h], __shfl_xor_sync(~0u, m_tile[h], 2));
+        const float m_new = fmaxf(m_run[h], m_tile[h]);  // finite: >= -1e9
+        corr[h] = __expf(m_run[h] - m_new);
+        m_run[h] = m_new;
+        l_run[h] *= corr[h];
+      }
+#pragma unroll
+      for (int i = 0; i < kKTile / 2; ++i) {
+        const float p = __expf(sacc[i] - m_run[(i >> 1) & 1]);
+        sacc[i] = p;
+        l_run[(i >> 1) & 1] += p;
+      }
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+      // O += P V: P in the register-A layout, V as stored ([key][d]).
+#if !ATTN_WGMMA_PV
+      {
+        const uint16_t* vs = (const uint16_t*)(smem + (v_tile(s) - s_q));
+#pragma unroll
+        for (int ks = 0; ks < kKTile / 16; ++ks) {
+          uint32_t pa[4];
+          pa[0] = pack_bf16(sacc[8 * ks + 0], sacc[8 * ks + 1]);
+          pa[1] = pack_bf16(sacc[8 * ks + 2], sacc[8 * ks + 3]);
+          pa[2] = pack_bf16(sacc[8 * ks + 4], sacc[8 * ks + 5]);
+          pa[3] = pack_bf16(sacc[8 * ks + 6], sacc[8 * ks + 7]);
+          const int key = ks * 16 + 2 * t;
+#pragma unroll
+          for (int n = 0; n < DH / 8; ++n) {
+            const int d = n * 8 + g;
+            auto at = [&](int kr) {
+              return (uint32_t)vs[swz<DH>(kKTile, kr, d) / 2];
+            };
+            uint32_t b[2];
+            b[0] = at(key) | (at(key + 1) << 16);
+            b[1] = at(key + 8) | (at(key + 9) << 16);
+            mma_bf16_16816(o + 4 * n, pa, b);
+          }
+        }
+      }
+#else
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kKTile / 16; ++ks) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(sacc[8 * ks + 0], sacc[8 * ks + 1]);
+        pa[1] = pack_bf16(sacc[8 * ks + 2], sacc[8 * ks + 3]);
+        pa[2] = pack_bf16(sacc[8 * ks + 4], sacc[8 * ks + 5]);
+        pa[3] = pack_bf16(sacc[8 * ks + 6], sacc[8 * ks + 7]);
+        wgmma_pv<DH>(o,
+                     pa, make_desc(v_tile(s) + ks * 16 * G::SWB, G::KV_CHUNK,
+                                   8 * G::SWB, G::LAYOUT));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<DH / 2>(o);
+#endif
+      mbar_arrive(empty(s));
     }
 
-    // Scale, mask, tile row max.
-    float m_tile[2] = {-INFINITY, -INFINITY};
+    // The partial (m, l, O) of this split into shared memory; the ring is
+    // free: every copy into it has landed and been read.
+    const int ra = warp * 16 + g, rb = ra + 8;
 #pragma unroll
-    for (int nt = 0; nt < kKTile / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int st = key_state[nt * 8 + t * 2 + (e & 1)];
-        float x = s[nt][e] * scale;
-        x = st > 0 ? x : (st == 0 ? kMasked : -INFINITY);
-        s[nt][e] = x;
-        m_tile[e >> 1] = fmaxf(m_tile[e >> 1], x);
-      }
+    for (int n = 0; n < DH / 8; ++n) {
+      const int c = n * 8 + t * 2;
+      *reinterpret_cast<float2*>(part + ra * G::PART_STRIDE + c) =
+          make_float2(o[4 * n], o[4 * n + 1]);
+      *reinterpret_cast<float2*>(part + rb * G::PART_STRIDE + c) =
+          make_float2(o[4 * n + 2], o[4 * n + 3]);
     }
-    float corr[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      m_tile[h] = fmaxf(m_tile[h], __shfl_xor_sync(0xffffffffu, m_tile[h], 1));
-      m_tile[h] = fmaxf(m_tile[h], __shfl_xor_sync(0xffffffffu, m_tile[h], 2));
-      const float m_new = fmaxf(m_run[h], m_tile[h]);  // finite: >= -1e9
-      corr[h] = __expf(m_run[h] - m_new);
-      m_run[h] = m_new;
-      l_run[h] *= corr[h];
+      l_run[h] += __shfl_xor_sync(~0u, l_run[h], 1);
+      l_run[h] += __shfl_xor_sync(~0u, l_run[h], 2);
     }
-#pragma unroll
-    for (int nt = 0; nt < kKTile / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[nt][e] - m_run[e >> 1]);
-        s[nt][e] = p;
-        l_run[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int dt = 0; dt < DH / 8; ++dt) {
-      o[dt][0] *= corr[0];
-      o[dt][1] *= corr[0];
-      o[dt][2] *= corr[1];
-      o[dt][3] *= corr[1];
-    }
-
-    // O += P V: the accumulator layout of two adjacent n-tiles is the A
-    // layout of one k16 step.
-#pragma unroll
-    for (int ks = 0; ks < kKTile / 16; ++ks) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
-      pa[1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
-      pa[2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
-      pa[3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < DH / 8; ++dt) {
-        const __nv_bfloat16* vrow = &vt_s[(dt * 8 + g) * VS + ks * 16 + t * 2];
-        uint32_t b[2];
-        b[0] = *reinterpret_cast<const uint32_t*>(vrow);
-        b[1] = *reinterpret_cast<const uint32_t*>(vrow + 8);
-        mma_bf16_16816(o[dt], pa, b);
-      }
+    if (t == 0) {
+      part_m[ra] = m_run[0];
+      part_m[rb] = m_run[1];
+      part_l[ra] = l_run[0];
+      part_l[rb] = l_run[1];
     }
   }
 
-  float inv[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float l = l_run[h];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[h] = 1.f / fmaxf(l, 1e-20f);
+  // Combine: CTA `rank` finishes rows [r0, r0 + rows) of the query tile
+  // from the S partials of its cluster, in rank order.
+  cluster.sync();
+  const int rows = kQTile / splits, r0 = rank * rows;
+  if (threadIdx.x < rows) {
+    const int r = r0 + threadIdx.x;
+    float M = -INFINITY;
+    for (int s = 0; s < splits; ++s)
+      M = fmaxf(M, cluster.map_shared_rank(part_m, s)[r]);
+    float L = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float m = cluster.map_shared_rank(part_m, s)[r];
+      const float w = m == -INFINITY ? 0.f : __expf(m - M);
+      wts[threadIdx.x * kMaxSplits + s] = w;
+      L += w * cluster.map_shared_rank(part_l, s)[r];
+    }
+    inv[threadIdx.x] = 1.f / fmaxf(L, 1e-20f);
   }
-  float* oh = out + (size_t)bh * Nq * DH;
-  const int ra = row0 + g, rb = row0 + g + 8;
-#pragma unroll
-  for (int dt = 0; dt < DH / 8; ++dt) {
-    const int c = dt * 8 + t * 2;
-    if (ra < Nq)
-      *reinterpret_cast<float2*>(oh + (size_t)ra * DH + c) =
-          make_float2(o[dt][0] * inv[0], o[dt][1] * inv[0]);
-    if (rb < Nq)
-      *reinterpret_cast<float2*>(oh + (size_t)rb * DH + c) =
-          make_float2(o[dt][2] * inv[1], o[dt][3] * inv[1]);
+  __syncthreads();
+  float* oh = out + ((size_t)bh * Nq + q0) * DH;
+  for (int i = threadIdx.x; i < rows * (DH / 4); i += kThreads) {
+    const int rl = i / (DH / 4), c = (i % (DH / 4)) * 4, r = r0 + rl;
+    if (q0 + r >= Nq) continue;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < splits; ++s) {
+      const float w = wts[rl * kMaxSplits + s];
+      const float4 p = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(part, s) + r * G::PART_STRIDE + c);
+      acc.x += w * p.x;
+      acc.y += w * p.y;
+      acc.z += w * p.z;
+      acc.w += w * p.w;
+    }
+    const float f = inv[rl];
+    *reinterpret_cast<float4*>(oh + (size_t)r * DH + c) =
+        make_float4(acc.x * f, acc.y * f, acc.z * f, acc.w * f);
   }
+  cluster.sync();  // no CTA leaves while its partial may still be read
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// Tensor map over (DH, rows, BH) bf16 with boxes of (one chunk, box_rows, 1).
+template <int DH>
+bool make_map(CUtensorMap* map, const void* base, int rows, int BH,
+              int box_rows) {
+  using G = Geo<DH>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)DH, (cuuint64_t)rows,
+                              (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)DH * 2,
+                                 (cuuint64_t)rows * DH * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)G::CC, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, G::TMA_SWIZZLE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* mask, void* out, int BH, int H, int Nq, int Nk,
-                   float scale, cudaStream_t stream) {
-  dim3 grid((Nq + kQTile - 1) / kQTile, BH);
-  attention_kernel<DH><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<float*>(out), H, Nq, Nk, scale);
-  return cudaGetLastError();
+                   float scale, int splits, cudaStream_t stream) {
+  using G = Geo<DH>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        G::SMEM);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!make_map<DH>(&tm_q, q, Nq, BH, kQTile) ||
+      !make_map<DH>(&tm_k, k, Nk, BH, kKTile) ||
+      !make_map<DH>(&tm_v, v, Nk, BH, kKTile))
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (Nq + kQTile - 1) / kQTile, BH);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = G::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, attention_kernel<DH>, tm_q, tm_k, tm_v,
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), H, Nq, Nk,
+      scale);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace
@@ -235,12 +662,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 extern "C" int gl_attention_fwd(const void* q, const void* k, const void* v,
                                 const void* mask, void* out, int BH, int H,
                                 int Nq, int Nk, int dh, float scale,
-                                void* stream) {
+                                int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (Nk + kKTile - 1) / kKTile;
+  if (BH <= 0 || Nq <= 0 || Nk <= 0 || H <= 0 || BH % H != 0 ||
+      (splits != 1 && splits != 2 && splits != 4 && splits != 8) ||
+      splits > n_tiles)
+    return (int)cudaErrorInvalidValue;
   switch (dh) {
-    case 32: return (int)launch<32>(q, k, v, mask, out, BH, H, Nq, Nk, scale, s);
-    case 64: return (int)launch<64>(q, k, v, mask, out, BH, H, Nq, Nk, scale, s);
-    case 128: return (int)launch<128>(q, k, v, mask, out, BH, H, Nq, Nk, scale, s);
+    case 32: return (int)launch<32>(q, k, v, mask, out, BH, H, Nq, Nk, scale, splits, s);
+    case 64: return (int)launch<64>(q, k, v, mask, out, BH, H, Nq, Nk, scale, splits, s);
+    case 128: return (int)launch<128>(q, k, v, mask, out, BH, H, Nq, Nk, scale, splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

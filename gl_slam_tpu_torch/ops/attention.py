@@ -2,10 +2,15 @@
 
 Counterpart of gl_slam_tpu/ops/attention.py. `attention_plain` is the plain
 PyTorch version of the function (the JAX `attention_xla`, with a written-out
-batch dimension); `attention_cuda` launches the hand-written flash-style
-kernel in csrc/attention.cu, which replaces the Pallas `attention_pallas` /
+batch dimension); `attention_cuda` launches the hand-written kernel in
+csrc/attention.cu, which replaces the Pallas `attention_pallas` /
 `_attn_kernel`. `attention` takes the plain version only for CPU tensors: a
 CUDA tensor launches the kernel or raises.
+
+The kernel gives each CTA one 64-row query tile of one (set, head). Where
+those CTAs are too few to fill the card, `split_plan` splits the keys of
+each query tile over a cluster of 2, 4 or 8 CTAs that combine their partial
+softmax sums in the same launch.
 
 Numerics: logits = q.k^T * scale accumulated in f32; masked keys are set to
 -1e9 (not -inf, so a row with every key masked averages v uniformly); the
@@ -23,6 +28,35 @@ from . import _build
 
 _NEG = -1e9
 _HEAD_DIMS = (32, 64, 128)
+Q_TILE = 64           # query rows per CTA (one consumer warpgroup)
+KEY_TILE = 64         # keys per stage of the kernel's shared-memory ring
+MAX_SPLITS = 8        # the portable cluster size
+WAVE_CTAS = 128       # about one CTA on each of the H100's 132 SMs
+
+
+def split_plan(BH: int, Nq: int, Nk: int) -> tuple[int, int]:
+    """(query tile, key splits S) of the kernel for BH (set, head) pairs.
+
+    S doubles from 1 while the ceil(Nq / Q_TILE) * BH CTAs times S fill less
+    than one wave, up to MAX_SPLITS, and only while every split keeps at
+    least one key tile (so each split holds a key below Nk)."""
+    ctas = -(-Nq // Q_TILE) * BH
+    tiles = -(-Nk // KEY_TILE)
+    splits = 1
+    while (splits < MAX_SPLITS and ctas * splits < WAVE_CTAS
+           and 2 * splits <= tiles):
+        splits *= 2
+    return Q_TILE, splits
+
+
+def split_ranges(Nk: int, splits: int) -> list[tuple[int, int]]:
+    """The [start, stop) key range of each split: split s takes key tiles
+    s T / S to (s + 1) T / S of the T = ceil(Nk / KEY_TILE) tiles, as the
+    kernel does."""
+    tiles = -(-Nk // KEY_TILE)
+    return [(s * tiles // splits * KEY_TILE,
+             min((s + 1) * tiles // splits * KEY_TILE, Nk))
+            for s in range(splits)]
 
 
 def attention_plain(q, k, v, mask_k, scale: float):
@@ -45,6 +79,19 @@ def attention_tolerance(q, k, v, mask_k, scale: float):
         dh 2^-22 scale max_j sum_d |q_id k_jd|, which moves each normalised
         weight by <= 2 delta_i relative;
       - the sum and p.v run over Nk f32 terms: Nk 2^-22 S.
+
+    The kernel's order stays inside these terms. It rounds each weight
+    exp(l_ij - m) to bf16 once, with m the running max of its split at that
+    key tile: a relative rounding (bf16 has f32's exponent range), so 2^-8
+    whatever m is. Each correction exp(m_old - m_new), and each split's
+    combine weight w_s = exp(m_s - M), multiplies the split's O and its sum
+    l by the same f32 number, so it cancels in O / l up to one f32 rounding
+    of each product: with at most Nk / 64 tile corrections and S <= 8
+    combine terms, fewer than Nk roundings of 2^-24, inside the Nk 2^-22 S
+    term. A split whose keys are all masked carries m_s = -1e9 and weighs
+    exp(-1e9 - M) = 0 unless every key of the set is masked, when all
+    m_s = -1e9, w_s = 1 and the result is the mean of v, as in the plain
+    version.
     """
     dh, Nk = q.shape[-1], k.shape[-2]
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
@@ -54,6 +101,17 @@ def attention_tolerance(q, k, v, mask_k, scale: float):
     dot = torch.matmul(q.float().abs(), k.float().abs().transpose(-1, -2))
     delta = dh * 2.0 ** -22 * scale * dot.amax(-1, keepdim=True)
     return (2.0 ** -7 + 2 * delta + Nk * 2.0 ** -22) * S + 1e-6
+
+
+def _launcher():
+    fn = _build.load("attention").gl_attention_fwd
+    if fn.argtypes is None:            # the CDLL keeps one object per name
+        fn.restype = _build.ctypes.c_int
+        fn.argtypes = [_build.ctypes.c_void_p] * 5 \
+            + [_build.ctypes.c_int] * 5 + [_build.ctypes.c_float,
+                                           _build.ctypes.c_int,
+                                           _build.ctypes.c_void_p]
+    return fn
 
 
 def attention_cuda(q, k, v, mask_k, scale: float):
@@ -86,14 +144,11 @@ def attention_cuda(q, k, v, mask_k, scale: float):
         return out
     if Nk == 0:
         raise ValueError("attention_cuda: no keys")
-    lib = _build.load("attention")
-    fn = lib.gl_attention_fwd
-    fn.restype = _build.ctypes.c_int
-    fn.argtypes = [_build.ctypes.c_void_p] * 5 + [_build.ctypes.c_int] * 5 \
-        + [_build.ctypes.c_float, _build.ctypes.c_void_p]
+    _, splits = split_plan(B * H, Nq, Nk)
+    fn = _launcher()
     m8 = mask_k.view(torch.uint8)
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(m8),
-             _build.ptr(out), B * H, H, Nq, Nk, dh, float(scale),
+             _build.ptr(out), B * H, H, Nq, Nk, dh, float(scale), splits,
              _build.stream_of(q))
     _build.LAUNCHES["attention"] += 1
     _build.check(err, "attention")

@@ -83,36 +83,97 @@ def test_attention_plain_bf16_rounds_p_like_jax():
     assert bool(((got - torch.from_numpy(ref)).abs() <= tol).all())
 
 
-def _attn_kernel_order(q, k, v, mask, scale):
-    """The CUDA kernel's arithmetic in plain torch: exp(l - max) rounded to
-    bf16 before the product with v, divided by the sum of the unrounded
-    exponentials afterwards."""
+def _attn_kernel_order(q, k, v, mask, scale, splits=1):
+    """The CUDA kernel's arithmetic in plain torch. The keys are cut into
+    `splits` contiguous ranges of whole key tiles (ops/attention.
+    split_ranges); each split walks its tiles with a running max m, rounds
+    exp(l - m) to bf16 before the product with v and keeps the sum of the
+    unrounded exponentials, rescaling both by exp(m_old - m_new) when m
+    grows; the splits then combine with weights exp(m_s - max_s m_s)."""
     lg = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     lg = torch.where(mask[..., None, None, :], lg, -1e9)
-    e = torch.exp(lg - lg.amax(-1, keepdim=True))
-    return torch.matmul(e.to(torch.bfloat16).float(), v.float()) \
-        / e.sum(-1, keepdim=True)
+    vf = v.float()
+    parts = []
+    for a, b in t_attn.split_ranges(k.shape[-2], splits):
+        m = torch.full(lg.shape[:-1] + (1,), -torch.inf)
+        l = torch.zeros_like(m)
+        o = torch.zeros(lg.shape[:-1] + (v.shape[-1],))
+        for j in range(a, b, t_attn.KEY_TILE):
+            x = lg[..., j:min(j + t_attn.KEY_TILE, b)]
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(x - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            o = o * corr + torch.matmul(p.to(torch.bfloat16).float(),
+                                        vf[..., j:j + x.shape[-1], :])
+            m = m_new
+        parts.append((m, l, o))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp(m - M) for m, _, _ in parts]
+    L = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+    O = sum(wi * o for wi, (_, _, o) in zip(w, parts))
+    return O / L.clamp_min(1e-20)
 
 
 def test_attention_tolerance_covers_kernel_rounding_and_no_more():
     """attention_tolerance bounds the gap between the kernel's rounding order
-    and the plain version's, and a dropped key tile lies far outside it."""
+    and the plain version's at every key split the kernel takes, with a
+    split made only of masked keys and a set with every key masked; a
+    dropped key tile lies far outside it."""
     g = torch.Generator().manual_seed(6)
-    k, v = (torch.randn(3, 2, 200, 64, generator=g).to(torch.bfloat16)
+    Nk = 520                             # 9 key tiles, the last one ragged
+    k, v = (torch.randn(3, 2, Nk, 64, generator=g).to(torch.bfloat16)
             for _ in range(2))
-    q = (0.75 * k.float()[..., (torch.arange(96) * 97) % 200, :]).to(
+    q = (0.75 * k.float()[..., (torch.arange(96) * 97) % Nk, :]).to(
         torch.bfloat16)                  # each query aims at one key
-    mask = torch.rand(3, 200, generator=g) < 0.8
+    mask = torch.rand(3, Nk, generator=g) < 0.8
     mask[1] = False                      # every key masked
+    mask[2, :128] = False                # the first split at S = 4, 8
     ref = t_attn.attention_plain(q, k, v, mask, 0.125)
     tol = t_attn.attention_tolerance(q, k, v, mask, 0.125)
-    assert bool(((_attn_kernel_order(q, k, v, mask, 0.125) - ref).abs()
-                 <= tol).all())
-    assert float(ref.abs().median() / tol.median()) >= 10
+    # outputs stand far above the bound (the all-masked set is held to
+    # the mean of v below)
+    assert float(ref[[0, 2]].abs().median() / tol[[0, 2]].median()) >= 10
     dropped = mask.clone()
-    dropped[:, 64:128] = False           # one 64-key tile lost
-    gap = (_attn_kernel_order(q, k, v, dropped, 0.125) - ref).abs() / tol
-    assert float(gap.max()) > 10
+    dropped[:, 192:256] = False          # one 64-key tile lost
+    for splits in (1, 2, 4, 8):
+        got = _attn_kernel_order(q, k, v, mask, 0.125, splits)
+        assert bool(((got - ref).abs() <= tol).all()), splits
+        # every key masked: the uniform mean of v
+        torch.testing.assert_close(got[1], v[1].float().mean(
+            -2, keepdim=True).expand_as(got[1]), rtol=0, atol=1e-5)
+        gap = (_attn_kernel_order(q, k, v, dropped, 0.125, splits)
+               - ref).abs() / tol
+        assert float(gap.max()) > 10, splits
+
+
+# The kernel's path shapes (ops/attention callers at flagship width: 2
+# heads; the prologue's 8 pairs x 2 sets) and ragged ones.
+PLAN_SHAPES = [("prologue", 32, 2048, 2048), ("reobs", 2, 1024, 1024),
+               ("reobs", 2, 2048, 2048), ("reobs", 2, 1024, 2048),
+               ("reobs", 2, 2048, 1024), ("ragged", 2, 40, 9),
+               ("ragged", 6, 17, 70), ("ragged", 2, 100, 200),
+               ("ragged", 1, 1, 200)]
+
+
+@pytest.mark.parametrize("kind,BH,Nq,Nk", PLAN_SHAPES)
+def test_split_plan_fills_the_card_and_keeps_keys_in_every_split(kind, BH,
+                                                                 Nq, Nk):
+    q_tile, splits = t_attn.split_plan(BH, Nq, Nk)
+    assert q_tile == t_attn.Q_TILE and splits in (1, 2, 4, 8)
+    ranges = t_attn.split_ranges(Nk, splits)
+    assert len(ranges) == splits and ranges[0][0] == 0
+    assert ranges[-1][1] == Nk
+    for (a, b), (c, _) in zip(ranges, ranges[1:] + [(Nk, Nk)]):
+        assert a < b <= Nk and b == c   # contiguous, each below Nk
+        assert a % t_attn.KEY_TILE == 0
+    ctas = -(-Nq // q_tile) * BH * splits
+    if kind == "prologue":
+        assert splits == 1
+    if kind == "reobs":
+        assert ctas >= 128
+    # no more splits than a wave needs
+    assert splits == 1 or ctas // 2 < t_attn.WAVE_CTAS
 
 
 def _asg_inputs(rng, B, N, M, Df):
