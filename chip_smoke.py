@@ -42,6 +42,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12          # outside the tensor cores
 PEAK_BYTES = 3.35e12
+SPIN_CYCLES = 50_000_000        # spin kernel ahead of a timed run, ~25 ms
 
 CHUNK = 8
 N_CHUNKS = 3
@@ -88,12 +89,17 @@ def card_line():
 
 
 def time_ms(fn, reps=20, warmup=3):
+    """Device time per call of `reps` calls back to back, by CUDA events.
+    A spin kernel ahead of the first event holds the stream while the host
+    issues all the calls, so that the events time the device and not the
+    host's issue rate (which bounds the short re-observation calls)."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()

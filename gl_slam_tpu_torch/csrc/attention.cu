@@ -57,22 +57,20 @@
 
 namespace cg = cooperative_groups;
 
-#ifndef ATTN_WGMMA_S
-#define ATTN_WGMMA_S 1
-#endif
-#ifndef ATTN_WGMMA_PV
-#define ATTN_WGMMA_PV 1
-#endif
-
 namespace {
 
-constexpr int kQTile = 64;   // query rows per CTA
-constexpr int kKTile = 64;   // keys per ring stage
-constexpr int kStages = 2;
-constexpr int kConsumers = 128;              // one warpgroup
-constexpr int kThreads = kConsumers + 32;    // + the producer warp
+constexpr int kConsumerWGs = 2;                // 64 query rows each
+constexpr int kQTile = 64 * kConsumerWGs;       // query rows per CTA
+constexpr int kKTile = 64;                      // keys per ring stage
+constexpr int kStages = 3;
+constexpr int kConsumers = 128 * kConsumerWGs;
+constexpr int kThreads = kConsumers + 32;       // + the producer warp
 constexpr int kMaxSplits = 8;
+// Logits run in base-2 units (scaled by log2 e), so p = 2^(x - m). The
+// masked sentinel stays -1e9: exp(-1e9 - m) and 2^(-1e9 - m) are both 0
+// against any unmasked logit, and both 1 when every key is masked.
 constexpr float kMasked = -1e9f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory geometry for head dim DH.
 template <int DH>
@@ -80,7 +78,6 @@ struct Geo {
   static constexpr int CC = DH < 64 ? DH : 64;  // bf16 columns per chunk
   static constexpr int SWB = CC * 2;            // bytes per chunk row
   static constexpr int CHUNKS = DH / CC;
-  static constexpr uint32_t SWZ = SWB == 128 ? 7 : 3;      // swizzle mask
   static constexpr uint64_t LAYOUT = SWB == 128 ? 1 : 2;   // wgmma swizzle
   static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
       SWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
@@ -88,10 +85,10 @@ struct Geo {
   static constexpr int KV_BYTES = kKTile * DH * 2;         // K or V tile
   static constexpr int Q_CHUNK = kQTile * SWB;
   static constexpr int KV_CHUNK = kKTile * SWB;
-  static constexpr int OFF_RING = Q_BYTES;                 // K0 V0 K1 V1
+  static constexpr int OFF_RING = Q_BYTES;                 // K0 V0 K1 V1 ..
   static constexpr int OFF_BARS = OFF_RING + kStages * 2 * KV_BYTES;
-  static constexpr int OFF_ML = OFF_BARS + 64;             // m[64], l[64]
-  static constexpr int OFF_W = OFF_ML + 2 * kQTile * 4;    // w[64][8], inv
+  static constexpr int OFF_ML = OFF_BARS + 64;             // m[], l[]
+  static constexpr int OFF_W = OFF_ML + 2 * kQTile * 4;    // w[][8], inv[]
   static constexpr int END = OFF_W + kQTile * (kMaxSplits + 1) * 4;
   static constexpr int SMEM = END + 1024;                  // + alignment
   static constexpr int PART_STRIDE = DH + 4;               // f32 partial O
@@ -161,12 +158,17 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
-// Keeps the compiler from touching accumulator registers across an
-// asynchronous wgmma.
+// Keeps the compiler from touching (or reusing) the registers of an
+// asynchronous wgmma's operands until it has completed.
 template <int N>
 __device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 // d[32] (+)= A (64 x 16) B (16 x 64), both from shared memory, K-major.
@@ -275,22 +277,10 @@ __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
   else wgmma_rs_m64n128k16(o, a, db);
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Byte offset of element (row, col) in a swizzled tile of `rows` rows.
-template <int DH>
-__device__ __forceinline__ uint32_t swz(int rows, int row, int col) {
-  using G = Geo<DH>;
-  uint32_t off = row * G::SWB + (col % G::CC) * 2;
-  off ^= ((off >> 7) & G::SWZ) << 4;
-  return (col / G::CC) * rows * G::SWB + off;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -299,7 +289,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 1)
 attention_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
@@ -363,156 +353,157 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     __syncwarp();
   } else {
-    // Consumer warpgroup: warp w owns rows 16w + g and 16w + g + 8 of the
-    // accumulators (g = lane / 4); thread t = lane % 4 holds columns
-    // 8 n + 2 t and 8 n + 2 t + 1 of each 8-column block n.
+    // Consumer warpgroup wg owns query rows 64 wg .. 64 wg + 63. In the
+    // accumulators warp w of the group holds rows 16 w + g and 16 w + g + 8
+    // (g = lane / 4), and thread t = lane % 4 columns 8 n + 2 t and
+    // 8 n + 2 t + 1 of each 8-column block n.
+    const int wg = warp / 4;
     const int g = lane / 4, t = lane % 4;
+    const float scale2 = scale * kLog2e;
     const uint8_t* mrow = mask + (size_t)(bh / H) * Nk;
+    const uint32_t s_qw = s_q + wg * 64 * G::SWB;  // this group's Q rows
     float o[DH / 2];
 #pragma unroll
     for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
     float m_run[2] = {-INFINITY, -INFINITY};
     float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
-    mbar_wait(qbar, 0);
-    __syncwarp();
+    // Mask bytes of the next tile, loaded a tile ahead.
+    uint8_t mk[2];
+    auto load_mask = [&](int j0) {
+      mk[0] = j0 + lane < Nk ? mrow[j0 + lane] : 0;
+      mk[1] = j0 + 32 + lane < Nk ? mrow[j0 + 32 + lane] : 0;
+    };
+    float sacc[kKTile / 2];  // S of the tile in flight, then its P (f32)
+    uint32_t pa[kKTile / 4];  // P of the tile, bf16 in the register-A layout
+    float corr[2];            // rescaling of O and l for the tile's max
 
-    for (int it = 0; it < t_count; ++it) {
-      const int s = it % kStages;
-      const int j0 = (t_begin + it) * kKTile;
-      // This tile's mask bits, read while its copy is in flight.
-      const uint64_t valid =
-          (uint64_t)__ballot_sync(~0u, j0 + lane < Nk && mrow[j0 + lane]) |
-          (uint64_t)__ballot_sync(~0u, j0 + 32 + lane < Nk &&
-                                           mrow[j0 + 32 + lane]) << 32;
-      const int n_in = Nk - j0;  // keys of the tile below Nk
-      mbar_wait(full(s), (it / kStages) & 1);
-      __syncwarp();  // the products below are warp-aligned
-
-      // S = Q K^T: 64 rows x 64 keys, k-steps of 16 along the head dim.
-      float sacc[kKTile / 2];
-#if !ATTN_WGMMA_S
-      {
-        const uint8_t* qs = smem;
-        const uint8_t* ks_ = smem + (k_tile(s) - s_q);
-        const int r = warp * 16 + g;
-#pragma unroll
-        for (int i = 0; i < kKTile / 2; ++i) sacc[i] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
-          const int c = kk * 16 + 2 * t;
-          uint32_t a[4];
-          a[0] = *(const uint32_t*)(qs + swz<DH>(kQTile, r, c));
-          a[1] = *(const uint32_t*)(qs + swz<DH>(kQTile, r + 8, c));
-          a[2] = *(const uint32_t*)(qs + swz<DH>(kQTile, r, c + 8));
-          a[3] = *(const uint32_t*)(qs + swz<DH>(kQTile, r + 8, c + 8));
-#pragma unroll
-          for (int n = 0; n < kKTile / 8; ++n) {
-            uint32_t b[2];
-            b[0] = *(const uint32_t*)(ks_ + swz<DH>(kKTile, n * 8 + g, c));
-            b[1] = *(const uint32_t*)(ks_ + swz<DH>(kKTile, n * 8 + g, c + 8));
-            mma_bf16_16816(sacc + 4 * n, a, b);
-          }
-        }
-      }
-#else
-      wgmma_fence();
+    auto issue_s = [&](int s) {
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
         const uint32_t off = (kk * 16 % G::CC) * 2;
         const int chunk = kk * 16 / G::CC;
         wgmma_ss_m64n64k16(
             sacc,
-            make_desc(s_q + chunk * G::Q_CHUNK + off, 16, 8 * G::SWB,
+            make_desc(s_qw + chunk * G::Q_CHUNK + off, 16, 8 * G::SWB,
                       G::LAYOUT),
             make_desc(k_tile(s) + chunk * G::KV_CHUNK + off, 16, 8 * G::SWB,
                       G::LAYOUT),
             kk > 0);
       }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs<kKTile / 2>(sacc);
-#endif
-
-      // Scale, mask, tile row max.
+    };
+    auto issue_pv = [&](int s) {
+#pragma unroll
+      for (int ks = 0; ks < kKTile / 16; ++ks)
+        wgmma_pv<DH>(o, pa + 4 * ks,
+                     make_desc(v_tile(s) + ks * 16 * G::SWB, G::KV_CHUNK,
+                               8 * G::SWB, G::LAYOUT));
+    };
+    // Scale and mask S of tile `it`, update the running max and sum, and
+    // leave its weights in pa and the rescaling of O in corr.
+    auto softmax = [&](int it) {
+      const int j0 = (t_begin + it) * kKTile;
+      // Bits of the tile's keys: valid (unmasked) and below Nk, each word
+      // shifted so that the key of element (n, e) is bit 8 (n % 4) + (e & 1)
+      // of word n / 4.
+      uint32_t valid[2], inside[2];
+      valid[0] = __ballot_sync(~0u, mk[0]) >> (2 * t);
+      valid[1] = __ballot_sync(~0u, mk[1]) >> (2 * t);
+      const int n_in = Nk - j0;
+      inside[0] = (n_in >= 32 ? ~0u : (1u << n_in) - 1u) >> (2 * t);
+      inside[1] = (n_in >= 64 ? ~0u : n_in <= 32 ? 0u
+                                               : (1u << (n_in - 32)) - 1u)
+                  >> (2 * t);
+      if (it + 1 < t_count) load_mask(j0 + kKTile);
       float m_tile[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int n = 0; n < kKTile / 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int j = n * 8 + t * 2 + (e & 1);
-          float x = sacc[4 * n + e] * scale;
-          x = j >= n_in ? -INFINITY : ((valid >> j) & 1 ? x : kMasked);
+          const uint32_t bit = 1u << (8 * (n % 4) + (e & 1));
+          float x = sacc[4 * n + e] * scale2;
+          x = (inside[n / 4] & bit) ? ((valid[n / 4] & bit) ? x : kMasked)
+                                    : -INFINITY;
           sacc[4 * n + e] = x;
           m_tile[e >> 1] = fmaxf(m_tile[e >> 1], x);
         }
       }
-      float corr[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         m_tile[h] = fmaxf(m_tile[h], __shfl_xor_sync(~0u, m_tile[h], 1));
         m_tile[h] = fmaxf(m_tile[h], __shfl_xor_sync(~0u, m_tile[h], 2));
         const float m_new = fmaxf(m_run[h], m_tile[h]);  // finite: >= -1e9
-        corr[h] = __expf(m_run[h] - m_new);
+        corr[h] = ex2(m_run[h] - m_new);
         m_run[h] = m_new;
         l_run[h] *= corr[h];
       }
 #pragma unroll
       for (int i = 0; i < kKTile / 2; ++i) {
-        const float p = __expf(sacc[i] - m_run[(i >> 1) & 1]);
+        const float p = ex2(sacc[i] - m_run[(i >> 1) & 1]);
         sacc[i] = p;
         l_run[(i >> 1) & 1] += p;
       }
 #pragma unroll
-      for (int i = 0; i < DH / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < kKTile / 4; ++i)
+        pa[i] = pack_bf16(sacc[2 * i], sacc[2 * i + 1]);
+    };
+    // The two groups take turns on the tensor cores (named barriers 2 and
+    // 3): one issues its products while the other runs its softmax. Turn
+    // k of a group issues S of its first tile (k = 0), or P V of tile k - 1
+    // with S of tile k; group 0 takes turn 0 first.
+    auto turn_begin = [&](int k) {
+      if (wg == 1)
+        asm volatile("bar.sync 3, %0;\n" :: "n"(kConsumers) : "memory");
+      else if (k > 0)
+        asm volatile("bar.sync 2, %0;\n" :: "n"(kConsumers) : "memory");
+    };
+    auto turn_end = [&](int k) {
+      if (wg == 0)
+        asm volatile("bar.arrive 3, %0;\n" :: "n"(kConsumers) : "memory");
+      else if (k < t_count)
+        asm volatile("bar.arrive 2, %0;\n" :: "n"(kConsumers) : "memory");
+    };
 
-      // O += P V: P in the register-A layout, V as stored ([key][d]).
-#if !ATTN_WGMMA_PV
-      {
-        const uint16_t* vs = (const uint16_t*)(smem + (v_tile(s) - s_q));
-#pragma unroll
-        for (int ks = 0; ks < kKTile / 16; ++ks) {
-          uint32_t pa[4];
-          pa[0] = pack_bf16(sacc[8 * ks + 0], sacc[8 * ks + 1]);
-          pa[1] = pack_bf16(sacc[8 * ks + 2], sacc[8 * ks + 3]);
-          pa[2] = pack_bf16(sacc[8 * ks + 4], sacc[8 * ks + 5]);
-          pa[3] = pack_bf16(sacc[8 * ks + 6], sacc[8 * ks + 7]);
-          const int key = ks * 16 + 2 * t;
-#pragma unroll
-          for (int n = 0; n < DH / 8; ++n) {
-            const int d = n * 8 + g;
-            auto at = [&](int kr) {
-              return (uint32_t)vs[swz<DH>(kKTile, kr, d) / 2];
-            };
-            uint32_t b[2];
-            b[0] = at(key) | (at(key + 1) << 16);
-            b[1] = at(key + 8) | (at(key + 9) << 16);
-            mma_bf16_16816(o + 4 * n, pa, b);
-          }
-        }
+    load_mask(t_begin * kKTile);
+    mbar_wait(qbar, 0);
+    mbar_wait(full(0), 0);
+    __syncwarp();  // the products are warp-aligned
+    turn_begin(0);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_commit();
+    turn_end(0);
+    wgmma_wait_all();
+    fence_regs<kKTile / 2>(sacc);
+    softmax(0);
+
+    for (int it = 0; it < t_count; ++it) {
+      const int s = it % kStages, s_next = (it + 1) % kStages;
+      const bool next = it + 1 < t_count;
+      if (next) {
+        mbar_wait(full(s_next), ((it + 1) / kStages) & 1);
+        __syncwarp();
       }
-#else
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      turn_begin(it + 1);
       wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kKTile / 16; ++ks) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(sacc[8 * ks + 0], sacc[8 * ks + 1]);
-        pa[1] = pack_bf16(sacc[8 * ks + 2], sacc[8 * ks + 3]);
-        pa[2] = pack_bf16(sacc[8 * ks + 4], sacc[8 * ks + 5]);
-        pa[3] = pack_bf16(sacc[8 * ks + 6], sacc[8 * ks + 7]);
-        wgmma_pv<DH>(o,
-                     pa, make_desc(v_tile(s) + ks * 16 * G::SWB, G::KV_CHUNK,
-                                   8 * G::SWB, G::LAYOUT));
-      }
+      issue_pv(s);  // O += P V, V as stored ([key][d])
+      if (next) issue_s(s_next);
       wgmma_commit();
+      turn_end(it + 1);
       wgmma_wait_all();
       fence_regs<DH / 2>(o);
-#endif
+      fence_regs<kKTile / 2>(sacc);
+      fence_regs<kKTile / 4>(pa);
       mbar_arrive(empty(s));
+      if (next) softmax(it + 1);
     }
 
-    // The partial (m, l, O) of this split into shared memory; the ring is
-    // free: every copy into it has landed and been read.
-    const int ra = warp * 16 + g, rb = ra + 8;
+    // The partial (m, l, O) of this split into shared memory. The ring is
+    // free once both groups are past their last tile: every copy into it
+    // has landed and been read.
+    asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
+    const int ra = wg * 64 + (warp % 4) * 16 + g, rb = ra + 8;
 #pragma unroll
     for (int n = 0; n < DH / 8; ++n) {
       const int c = n * 8 + t * 2;
@@ -546,7 +537,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
     float L = 0.f;
     for (int s = 0; s < splits; ++s) {
       const float m = cluster.map_shared_rank(part_m, s)[r];
-      const float w = m == -INFINITY ? 0.f : __expf(m - M);
+      const float w = m == -INFINITY ? 0.f : ex2(m - M);
       wts[threadIdx.x * kMaxSplits + s] = w;
       L += w * cluster.map_shared_rank(part_l, s)[r];
     }

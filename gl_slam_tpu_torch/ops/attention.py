@@ -7,7 +7,7 @@ csrc/attention.cu, which replaces the Pallas `attention_pallas` /
 `_attn_kernel`. `attention` takes the plain version only for CPU tensors: a
 CUDA tensor launches the kernel or raises.
 
-The kernel gives each CTA one 64-row query tile of one (set, head). Where
+The kernel gives each CTA one 128-row query tile of one (set, head). Where
 those CTAs are too few to fill the card, `split_plan` splits the keys of
 each query tile over a cluster of 2, 4 or 8 CTAs that combine their partial
 softmax sums in the same launch.
@@ -28,7 +28,7 @@ from . import _build
 
 _NEG = -1e9
 _HEAD_DIMS = (32, 64, 128)
-Q_TILE = 64           # query rows per CTA (one consumer warpgroup)
+Q_TILE = 128          # query rows per CTA (two consumer warpgroups)
 KEY_TILE = 64         # keys per stage of the kernel's shared-memory ring
 MAX_SPLITS = 8        # the portable cluster size
 WAVE_CTAS = 128       # about one CTA on each of the H100's 132 SMs

@@ -8,10 +8,15 @@ kernels, and at each path shape (the prologue's 8 pairs x 2 sets x 2 heads
 at 2048 x 2048, and the re-observation calls' 2 heads at (Nq, Nk) in
 {1024, 2048}^2, dh 128, inputs as chip_smoke.py makes them) holds the
 kernel against `attention_plain` within `attention_tolerance`. It prints
-one JSON line: the card, and per shape the kernel's ms (CUDA events over
-`reps` launches), one `F.scaled_dot_product_attention` call's ms on the
-same inputs, the key split and CTA count where the checkout has
-`split_plan`, the error over its bound, and the host microseconds per
+one JSON line: the card, and per shape the kernel's ms (device time per
+launch: CUDA events around `reps` back-to-back launches that a spin kernel
+holds until all are issued; `events_ms` the same without the spin kernel,
+which the host bounds where a launch takes longer to issue than to run;
+`profiler_ms` the summed kernel durations from torch.profiler), one
+`F.scaled_dot_product_attention` call's ms the same three ways on the same
+inputs, the key split and CTA count
+where the checkout has `split_plan`, the error over its bound, and the host
+microseconds per
 `attention_cuda` call (host clock over back-to-back calls, no
 synchronisation inside). Two checkouts are compared by running this on
 each in turn on one card: parent, change, change, parent.
@@ -31,18 +36,42 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHUNK, HEADS, HEAD_DIM, N_KPTS, M_REOBS = 8, 2, 128, 2048, 1024
 
 
-def time_ms(torch, fn, reps, warmup=3):
+def time_ms(torch, fn, reps, warmup=3, spin=0):
+    """Per call, by CUDA events around `reps` back-to-back calls; with
+    `spin` cycles of a spin kernel ahead of the first event, which hold the
+    stream while the host issues the calls, the device's time."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if spin:
+        torch.cuda._sleep(spin)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps):
+    """Device time per call: the summed durations of the device activities
+    (kernels, copies) that `reps` calls issue, from torch.profiler. Unlike
+    CUDA events around back-to-back calls it leaves out the gaps in which
+    the device waits for the host."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.is_user_annotation)
+    return us / 1e3 / reps
 
 
 def path_cases(torch, gen, dev):
@@ -72,7 +101,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--host-calls", type=int, default=200)
+    ap.add_argument("--host-calls", type=int, default=100)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -101,26 +130,40 @@ def main() -> int:
         H, Nq, dh = q.shape[-3:]
         Nk = k.shape[-2]
         BH = q.numel() // (Nq * dh)
-        row = dict(shape=name, err_over_bound=over,
-                   ms=time_ms(torch, lambda: A.attention_cuda(
-                       q, k, v, mask, scale), args.reps))
         q4, k4, v4 = (x.reshape(-1, H, *x.shape[-2:]) for x in (q, k, v))
         bias = torch.where(mask.reshape(-1, Nk), 0.0, -1e9).to(
             torch.bfloat16)[:, None, None, :]
-        row["sdpa_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=bias, scale=scale), args.reps)
+
+        def kernel():
+            A.attention_cuda(q, k, v, mask, scale)
+
+        def sdpa():
+            F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias,
+                                           scale=scale)
+
+        spin = 50_000_000
+        row = dict(shape=name, err_over_bound=over,
+                   ms=time_ms(torch, kernel, args.reps, spin=spin),
+                   events_ms=time_ms(torch, kernel, args.reps),
+                   profiler_ms=device_ms(torch, kernel, args.reps),
+                   sdpa_ms=time_ms(torch, sdpa, args.reps, spin=spin),
+                   sdpa_events_ms=time_ms(torch, sdpa, args.reps),
+                   sdpa_profiler_ms=device_ms(torch, sdpa, args.reps))
         row["bound_ms"] = 4.0 * BH * Nq * Nk * dh / 989e12 * 1e3
         if hasattr(A, "split_plan"):
             q_tile, splits = A.split_plan(BH, Nq, Nk)
             row["splits"] = splits
             row["ctas"] = -(-Nq // q_tile) * BH * splits
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(args.host_calls):
-            A.attention_cuda(q, k, v, mask, scale)
-        row["host_us_per_call"] = (time.perf_counter() - t0) \
-            / args.host_calls * 1e6
-        torch.cuda.synchronize()
+        # Host time per call: the median of 5 rounds of back-to-back calls.
+        rounds = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(args.host_calls):
+                kernel()
+            rounds.append((time.perf_counter() - t0) / args.host_calls * 1e6)
+            torch.cuda.synchronize()
+        row["host_us_per_call"] = sorted(rounds)[2]
         rows.append(row)
         print(f"  {name}: {row}", file=sys.stderr, flush=True)
     print(json.dumps(dict(root=os.path.abspath(args.root), card=card,

@@ -27,30 +27,31 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (lead, Nq, Nk, dh, masked key range): ragged shapes; the four
-# re-observation shapes, which the kernel splits over 2-4 CTAs; a mask that
-# empties the first of 4 splits (keys 0-255 of 16 tiles) with Nk not a
-# multiple of S x 64; Nq < 64 split 8 ways.
-ATTN_CASES = [((3,), 100, 70, 128, None), ((), 64, 200, 64, None),
-              ((2, 2), 17, 9, 32, None),
-              ((), 1024, 1024, 128, None), ((), 2048, 2048, 128, None),
-              ((), 1024, 2048, 128, None), ((), 2048, 1024, 128, None),
-              ((), 1024, 1000, 128, (0, 256)), ((), 40, 900, 128, None)]
+# (lead, Nq, Nk, dh, empty first split): ragged shapes; the four
+# re-observation shapes, which the kernel splits over 4-8 CTAs; a mask that
+# empties the first split with Nk not a multiple of S x 64; Nq < 64 split
+# 8 ways.
+ATTN_CASES = [((3,), 100, 70, 128, False), ((), 64, 200, 64, False),
+              ((2, 2), 17, 9, 32, False),
+              ((), 1024, 1024, 128, False), ((), 2048, 2048, 128, False),
+              ((), 1024, 2048, 128, False), ((), 2048, 1024, 128, False),
+              ((), 1024, 1000, 128, True), ((), 40, 900, 128, False)]
 
 
 @pytest.mark.parametrize("lead,Nq,Nk,dh,masked", ATTN_CASES)
 def test_attention_kernel_matches_plain(cuda_device, lead, Nq, Nk, dh,
                                         masked):
+    """One launch per call, every element within attention_tolerance."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v = (torch.randn(*lead, 2, n, dh, generator=g, device=cuda_device)
                .to(torch.bfloat16) for n in (Nq, Nk, Nk))
     mask = torch.rand(*lead, Nk, generator=g, device=cuda_device) < 0.6
-    if masked is None:
-        mask.view(-1, Nk)[0] = False       # a set with every key masked
+    splits = t_attn.split_plan(q.numel() // (Nq * dh), Nq, Nk)[1]
+    if masked:
+        assert splits > 1 and Nk % (64 * splits)
+        mask[..., :t_attn.split_ranges(Nk, splits)[0][1]] = False
     else:
-        mask[..., masked[0]:masked[1]] = False
-        splits = t_attn.split_plan(2, Nq, Nk)[1]
-        assert t_attn.split_ranges(Nk, splits)[0] == masked
+        mask.view(-1, Nk)[0] = False       # a set with every key masked
     before = _build.LAUNCHES["attention"]
     out = t_attn.attention(q, k, v, mask, dh ** -0.5)
     assert _build.LAUNCHES["attention"] == before + 1
