@@ -202,13 +202,14 @@ def check_attention(torch, gen, dev, report):
         nbytes = 2 * (q.numel() + k.numel() + v.numel()) + mask.numel() \
             + 4 * out.numel()
         H = q.shape[-3]
-        q_tile, splits = A.split_plan(lead, Nq, Nk)
+        q_tile, key_tile, splits = A.split_plan(lead, Nq, Nk)
         ctas = -(-Nq // q_tile) * lead * splits
         q4, k4, v4 = (x.reshape(-1, H, *x.shape[-2:]) for x in (q, k, v))
         bias = torch.where(mask.reshape(-1, Nk), 0.0, -1e9).to(
             torch.bfloat16)[:, None, None, :]
         row = dict(
-            shape=name, splits=splits, ctas=ctas, max_abs_err=err,
+            shape=name, key_tile=key_tile, splits=splits, ctas=ctas,
+            max_abs_err=err,
             max_err_over_bound=over,
             median_ref_over_bound=strength, masked_set_err_over_bound=uni_err,
             ms=time_ms(lambda: A.attention_cuda(q, k, v, mask, scale)),
@@ -219,7 +220,8 @@ def check_attention(torch, gen, dev, report):
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
         report.append(row)
         del tol, diff
-        print(f"  attention {name}: key split S={splits}, {ctas} CTAs; "
+        print(f"  attention {name}: key split S={splits}, {ctas} CTAs, "
+              f"{key_tile}-key tiles; "
               f"max|err| {err:.3g}, <= {over:.3g} x the "
               f"bound, median|ref| {strength:.3g} x the bound; kernel "
               f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa "
@@ -404,6 +406,10 @@ def check_nms(torch, gen, dev, report, cfg, sp, stack):
 STAGES = ("extract", "extract.nms", "prologue.match", "prologue.essential",
           "track.reobserve_window", "track.reobserve_covis", "track.pose_lm",
           "track.insert_keyframe", "backend.ba", "backend.recycle")
+OWN_KERNELS = {"attention": ("attention_kernel",),
+               "assignment": ("pass_lse", "combine_lse", "pass_argmax",
+                              "combine_argmax"),
+               "nms": ("nms_kernel",)}
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")
 
@@ -450,6 +456,10 @@ def profile_run(torch, once):
                         "cudaLaunchKernelExC"):
             launches += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    # Device time of the hand-written kernels, by the names in csrc/.
+    own = {name: sum(t for k, (t, _) in by_name.items()
+                     if any(f in k for f in fns)) / 1e3
+           for name, fns in OWN_KERNELS.items()}
     # Busy and wall time of this one run. The profiler slows the host, so
     # this overstates the idle share of an unprofiled run.
     idle = 1.0 - busy_us / 1e6 / wall
@@ -461,6 +471,7 @@ def profile_run(torch, once):
                device_idle_share=idle, kernels=n_kernels,
                launch_calls=launches, stages=stages,
                sync_calls=len(syncs), sync_calls_in_ba=ba_syncs,
+               own_kernel_ms=own,
                top_kernels=[dict(name=k, ms=v[0] / 1e3, count=v[1])
                             for k, v in top])
     print(f"  profiled run: {wall:.3f} s wall, {n_kernels} device "
@@ -468,6 +479,9 @@ def profile_run(torch, once):
           f"busy {busy_us / 1e6:.3f} s, idle share {idle:.3f}", flush=True)
     print(f"    host synchronisations: {len(syncs)} in the run, {ba_syncs} "
           f"inside BA passes")
+    print("    hand-written kernels: " + ", ".join(
+        f"{k} {v:.2f} ms ({100 * v / (busy_us / 1e3):.1f} % of busy)"
+        for k, v in own.items()))
     for k in STAGES:
         if k in stages:
             print(f"    {k}: host {stages[k]['host_ms']:.1f} ms over "

@@ -12,31 +12,41 @@
 // 2048, dh = 128) do ~69 GFLOP against ~25 MB of traffic: bound by
 // tensor-core operations (>= 70 us at 989 TFLOP/s bf16). The re-observation
 // calls (1 set x 2 heads, 1024/2048 queries and keys) do 1-4 GFLOP each,
-// but give only 32-64 query tiles, so a CTA per tile leaves most of the
+// but give only 16-32 query tiles, so a CTA per tile leaves most of the
 // 132 SMs idle. The design, in the order the time is lost:
 //
-// 1. Key split. ops/attention.split_plan picks S in {1, 2, 4, 8} so that
-//    ceil(Nq/64) * BH * S CTAs fill about one wave. The grid is
-//    (S, ceil(Nq/64), BH) in clusters of S CTAs over one query tile; CTA s
-//    walks key tiles [s T / S, (s + 1) T / S) of the T = ceil(Nk/64) and
-//    keeps its partial (m, l, O) in shared memory. After a cluster barrier
-//    CTA s combines rows [s 64/S, (s + 1) 64/S) of all S partials, read over
-//    distributed shared memory in rank order (deterministic), and stores
-//    them. One launch per call; S = 1 is the same path with a cluster of one.
-// 2. Asynchronous copies. One producer warp issues TMA copies (3-d tensor
-//    maps over (dh, N, BH), encoded on the host per call) of the Q tile once
-//    and of 64-key K and V tiles into a 2-stage ring with full/empty
+// 1. Key split. ops/attention.split_plan picks S in {1, 2, 4, 8}: where
+//    fewer than 64 CTAs of 128 query rows would run, the grid is
+//    (S, ceil(Nq/128), BH) in clusters of S CTAs over one query tile, S the
+//    least that gives 64 CTAs (measured fastest on the H100, ahead of 128).
+//    CTA s walks key tiles [s T / S, (s + 1) T / S) of the T = ceil(Nk/64)
+//    and keeps its partial (m, l, O) in shared memory. After a cluster
+//    barrier CTA s combines rows [s 128/S, (s + 1) 128/S) of all S
+//    partials, read over distributed shared memory in rank order
+//    (deterministic), and stores them. One launch per call; S = 1 is the
+//    same path with a cluster of one.
+// 2. Asynchronous copies. One thread of a producer warpgroup (which hands
+//    its registers to the consumers with setmaxnreg) issues TMA copies (3-d
+//    tensor maps over (dh, N, BH), encoded on the host per call) of the Q
+//    tile once and of K and V tiles into a 3-stage ring with full/empty
 //    mbarriers; TMA zero-fills rows past Nq and Nk. Tiles land in the
 //    128-byte swizzle (64-byte for dh = 32) in column chunks of 64 (32) bf16.
-// 3. wgmma. One consumer warpgroup owns the 64 query rows. S = Q K^T is
-//    wgmma m64n64k16 with Q and K from shared memory, both K-major. O += P V
-//    is wgmma m64n{dh}k16 with P from registers (the f32 S accumulator,
-//    masked, exponentiated and packed to bf16 in place: its layout is the
-//    register-A layout) and V from shared memory as stored, [key][d], read
-//    N-major through wgmma's transpose flag.
-// Sizes: Q tile 64, key tile 64, 2 stages, 1 consumer warpgroup + 1 producer
-// warp (160 threads); 84 KB of shared memory at dh = 128, so two CTAs
-// share an SM and one's softmax overlaps the other's products.
+//    A K/V tile serves 128 query rows, which halves the L2 reads of 64-row
+//    tiles (the prologue re-reads each head's K and V 16 times). Unsplit
+//    calls take 96-key tiles: the S product then reads its Q operand from
+//    shared memory once per 96 keys instead of once per 64.
+// 3. wgmma. Two consumer warpgroups own 64 query rows each. S = Q K^T is
+//    wgmma m64n{64,96}k16 with Q and K from shared memory, both K-major.
+//    O += P V is wgmma m64n{dh}k16 with P from registers (the f32 S
+//    accumulator, masked, exponentiated and packed to bf16: its layout is
+//    the register-A layout) and V from shared memory as stored, [key][d],
+//    read N-major through wgmma's transpose flag. The groups take turns on
+//    the tensor cores (named barriers): one issues P V of its tile with S
+//    of its next tile while the other runs its softmax; a group's softmax
+//    of the next tile starts as soon as its S is in, while its P V runs.
+// Sizes: Q tile 128; key tile 64 (split) or 96; 3 stages; 2 consumer
+// warpgroups + 1 producer warpgroup (384 threads, 240/24 registers);
+// 135 KB (64) or 183 KB (96) of shared memory at dh = 128, one CTA per SM.
 //
 // Numerics follow the reference: logits = (q.k) * scale in f32, masked keys
 // are -1e9 (not -inf, so a row whose keys are all masked averages v), keys
@@ -61,10 +71,9 @@ namespace {
 
 constexpr int kConsumerWGs = 2;                // 64 query rows each
 constexpr int kQTile = 64 * kConsumerWGs;       // query rows per CTA
-constexpr int kKTile = 64;                      // keys per ring stage
-constexpr int kStages = 3;
+constexpr int kStages = 3;                      // K/V ring
 constexpr int kConsumers = 128 * kConsumerWGs;
-constexpr int kThreads = kConsumers + 32;       // + the producer warp
+constexpr int kThreads = kConsumers + 128;      // + the producer warpgroup
 constexpr int kMaxSplits = 8;
 // Logits run in base-2 units (scaled by log2 e), so p = 2^(x - m). The
 // masked sentinel stays -1e9: exp(-1e9 - m) and 2^(-1e9 - m) are both 0
@@ -72,8 +81,8 @@ constexpr int kMaxSplits = 8;
 constexpr float kMasked = -1e9f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared-memory geometry for head dim DH.
-template <int DH>
+// Shared-memory geometry for head dim DH and key tile KT.
+template <int DH, int KT>
 struct Geo {
   static constexpr int CC = DH < 64 ? DH : 64;  // bf16 columns per chunk
   static constexpr int SWB = CC * 2;            // bytes per chunk row
@@ -82,9 +91,9 @@ struct Geo {
   static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
       SWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   static constexpr int Q_BYTES = kQTile * DH * 2;
-  static constexpr int KV_BYTES = kKTile * DH * 2;         // K or V tile
+  static constexpr int KV_BYTES = KT * DH * 2;         // K or V tile
   static constexpr int Q_CHUNK = kQTile * SWB;
-  static constexpr int KV_CHUNK = kKTile * SWB;
+  static constexpr int KV_CHUNK = KT * SWB;
   static constexpr int OFF_RING = Q_BYTES;                 // K0 V0 K1 V1 ..
   static constexpr int OFF_BARS = OFF_RING + kStages * 2 * KV_BYTES;
   static constexpr int OFF_ML = OFF_BARS + 64;             // m[], l[]
@@ -155,8 +164,9 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 // Keeps the compiler from touching (or reusing) the registers of an
 // asynchronous wgmma's operands until it has completed.
@@ -190,6 +200,34 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float* d, uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[48] (+)= A (64 x 16) B (16 x 96), both from shared memory, K-major.
+__device__ __forceinline__ void wgmma_ss_m64n96k16(float* d, uint64_t da,
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -269,6 +307,13 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float* d, const uint32_t* a,
 }
 
 
+template <int KT>
+__device__ __forceinline__ void wgmma_s(float* d, uint64_t da, uint64_t db,
+                                        int accumulate) {
+  if constexpr (KT == 64) wgmma_ss_m64n64k16(d, da, db, accumulate);
+  else wgmma_ss_m64n96k16(d, da, db, accumulate);
+}
+
 template <int DH>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
                                          uint64_t db) {
@@ -288,14 +333,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int DH>
+template <int DH, int KT>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
                  const uint8_t* __restrict__ mask, float* __restrict__ out,
                  int H, int Nq, int Nk, float scale) {
-  using G = Geo<DH>;
+  using G = Geo<DH, KT>;
   extern __shared__ uint8_t smem_raw[];
   // Swizzled tiles need 1024-byte alignment.
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -317,7 +362,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = gridDim.x, rank = blockIdx.x;
   const int q0 = blockIdx.y * kQTile, bh = blockIdx.z;
-  const int n_tiles = (Nk + kKTile - 1) / kKTile;
+  const int n_tiles = (Nk + KT - 1) / KT;
   const int t_begin = rank * n_tiles / splits;
   const int t_count = (rank + 1) * n_tiles / splits - t_begin;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -332,9 +377,10 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
 
-  if (warp == kConsumers / 32) {
+  if (warp >= kConsumers / 32) {
     // Producer: the Q tile once, then K and V tiles through the ring.
-    if (lane == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == kConsumers / 32 && lane == 0) {
       mbar_expect_tx(qbar, G::Q_BYTES);
       for (int c = 0; c < G::CHUNKS; ++c)
         tma_load(s_q + c * G::Q_CHUNK, &tm_q, qbar, c * G::CC, q0, bh);
@@ -342,7 +388,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int s = it % kStages;
         mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
         mbar_expect_tx(full(s), 2 * G::KV_BYTES);
-        const int j0 = (t_begin + it) * kKTile;
+        const int j0 = (t_begin + it) * KT;
         for (int c = 0; c < G::CHUNKS; ++c) {
           tma_load(k_tile(s) + c * G::KV_CHUNK, &tm_k, full(s), c * G::CC,
                    j0, bh);
@@ -352,7 +398,10 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
     __syncwarp();
+    cluster.sync();  // the partials are written
+    cluster.sync();  // and combined
   } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     // Consumer warpgroup wg owns query rows 64 wg .. 64 wg + 63. In the
     // accumulators warp w of the group holds rows 16 w + g and 16 w + g + 8
     // (g = lane / 4), and thread t = lane % 4 columns 8 n + 2 t and
@@ -368,21 +417,26 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
     float m_run[2] = {-INFINITY, -INFINITY};
     float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
     // Mask bytes of the next tile, loaded a tile ahead.
-    uint8_t mk[2];
+    constexpr int kWords = KT / 32;
+    uint8_t mk[kWords];
     auto load_mask = [&](int j0) {
-      mk[0] = j0 + lane < Nk ? mrow[j0 + lane] : 0;
-      mk[1] = j0 + 32 + lane < Nk ? mrow[j0 + 32 + lane] : 0;
+#pragma unroll
+      for (int w = 0; w < kWords; ++w)
+        mk[w] = j0 + 32 * w + lane < Nk ? mrow[j0 + 32 * w + lane] : 0;
     };
-    float sacc[kKTile / 2];  // S of the tile in flight, then its P (f32)
-    uint32_t pa[kKTile / 4];  // P of the tile, bf16 in the register-A layout
+    float sacc[KT / 2];  // S of the tile in flight, then its P (f32)
+    // P of a tile, bf16 in the register-A layout: two buffers, since the
+    // softmax of the next tile runs while P V of this one reads its P.
+    uint32_t pa0[KT / 4], pa1[KT / 4];
     float corr[2];            // rescaling of O and l for the tile's max
+    bool rescale;             // some row of the warp has a new max
 
     auto issue_s = [&](int s) {
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
         const uint32_t off = (kk * 16 % G::CC) * 2;
         const int chunk = kk * 16 / G::CC;
-        wgmma_ss_m64n64k16(
+        wgmma_s<KT>(
             sacc,
             make_desc(s_qw + chunk * G::Q_CHUNK + off, 16, 8 * G::SWB,
                       G::LAYOUT),
@@ -391,40 +445,53 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
             kk > 0);
       }
     };
-    auto issue_pv = [&](int s) {
+    auto issue_pv = [&](int s, const uint32_t* pa) {
 #pragma unroll
-      for (int ks = 0; ks < kKTile / 16; ++ks)
+      for (int ks = 0; ks < KT / 16; ++ks)
         wgmma_pv<DH>(o, pa + 4 * ks,
                      make_desc(v_tile(s) + ks * 16 * G::SWB, G::KV_CHUNK,
                                8 * G::SWB, G::LAYOUT));
     };
     // Scale and mask S of tile `it`, update the running max and sum, and
     // leave its weights in pa and the rescaling of O in corr.
-    auto softmax = [&](int it) {
-      const int j0 = (t_begin + it) * kKTile;
-      // Bits of the tile's keys: valid (unmasked) and below Nk, each word
-      // shifted so that the key of element (n, e) is bit 8 (n % 4) + (e & 1)
-      // of word n / 4.
-      uint32_t valid[2], inside[2];
-      valid[0] = __ballot_sync(~0u, mk[0]) >> (2 * t);
-      valid[1] = __ballot_sync(~0u, mk[1]) >> (2 * t);
+    auto softmax = [&](int it, uint32_t* pa) {
+      const int j0 = (t_begin + it) * KT;
+      // Bits of the tile's keys, valid (unmasked) and below Nk; each word
+      // is then shifted so that the key of element (n, e) is bit
+      // 8 (n % 4) + (e & 1) of word n / 4.
+      uint32_t valid[kWords], inside[kWords];
+      bool plain = true;  // every key valid and below Nk (warp-uniform)
       const int n_in = Nk - j0;
-      inside[0] = (n_in >= 32 ? ~0u : (1u << n_in) - 1u) >> (2 * t);
-      inside[1] = (n_in >= 64 ? ~0u : n_in <= 32 ? 0u
-                                               : (1u << (n_in - 32)) - 1u)
-                  >> (2 * t);
-      if (it + 1 < t_count) load_mask(j0 + kKTile);
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) {
+        const int n_w = n_in - 32 * w;
+        valid[w] = __ballot_sync(~0u, mk[w]);
+        inside[w] = n_w >= 32 ? ~0u : n_w <= 0 ? 0u : (1u << n_w) - 1u;
+        plain = plain && (valid[w] & inside[w]) == ~0u;
+        valid[w] >>= 2 * t;
+        inside[w] >>= 2 * t;
+      }
+      if (it + 1 < t_count) load_mask(j0 + KT);
       float m_tile[2] = {-INFINITY, -INFINITY};
+      if (plain) {
+        // The row max of the raw products; scale2 > 0 keeps it the max.
 #pragma unroll
-      for (int n = 0; n < kKTile / 8; ++n) {
+        for (int i = 0; i < KT / 2; ++i)
+          m_tile[(i >> 1) & 1] = fmaxf(m_tile[(i >> 1) & 1], sacc[i]);
+        m_tile[0] *= scale2;
+        m_tile[1] *= scale2;
+      } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t bit = 1u << (8 * (n % 4) + (e & 1));
-          float x = sacc[4 * n + e] * scale2;
-          x = (inside[n / 4] & bit) ? ((valid[n / 4] & bit) ? x : kMasked)
-                                    : -INFINITY;
-          sacc[4 * n + e] = x;
-          m_tile[e >> 1] = fmaxf(m_tile[e >> 1], x);
+        for (int n = 0; n < KT / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t bit = 1u << (8 * (n % 4) + (e & 1));
+            float x = sacc[4 * n + e] * scale2;
+            x = (inside[n / 4] & bit) ? ((valid[n / 4] & bit) ? x : kMasked)
+                                      : -INFINITY;
+            sacc[4 * n + e] = x;
+            m_tile[e >> 1] = fmaxf(m_tile[e >> 1], x);
+          }
         }
       }
 #pragma unroll
@@ -436,14 +503,18 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
         m_run[h] = m_new;
         l_run[h] *= corr[h];
       }
+      // corr = 1 leaves O as it is: skip the multiplications.
+      rescale = __any_sync(~0u, corr[0] != 1.f || corr[1] != 1.f);
+      // p = 2^(x - m), x = s scale2 (fused on the plain path).
+      const float sc = plain ? scale2 : 1.f;
 #pragma unroll
-      for (int i = 0; i < kKTile / 2; ++i) {
-        const float p = ex2(sacc[i] - m_run[(i >> 1) & 1]);
+      for (int i = 0; i < KT / 2; ++i) {
+        const float p = ex2(fmaf(sacc[i], sc, -m_run[(i >> 1) & 1]));
         sacc[i] = p;
         l_run[(i >> 1) & 1] += p;
       }
 #pragma unroll
-      for (int i = 0; i < kKTile / 4; ++i)
+      for (int i = 0; i < KT / 4; ++i)
         pa[i] = pack_bf16(sacc[2 * i], sacc[2 * i + 1]);
     };
     // The two groups take turns on the tensor cores (named barriers 2 and
@@ -463,7 +534,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
         asm volatile("bar.arrive 2, %0;\n" :: "n"(kConsumers) : "memory");
     };
 
-    load_mask(t_begin * kKTile);
+    load_mask(t_begin * KT);
     mbar_wait(qbar, 0);
     mbar_wait(full(0), 0);
     __syncwarp();  // the products are warp-aligned
@@ -472,32 +543,53 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
     issue_s(0);
     wgmma_commit();
     turn_end(0);
-    wgmma_wait_all();
-    fence_regs<kKTile / 2>(sacc);
-    softmax(0);
+    wgmma_wait<0>();
+    fence_regs<KT / 2>(sacc);
+    softmax(0, pa0);
 
-    for (int it = 0; it < t_count; ++it) {
+    // Tile it: S of tile it + 1 and P V of tile it go out together; the
+    // softmax of tile it + 1 runs as soon as its S is in, while P V runs.
+    // The last tile, with no S to issue, is peeled off, so that every step
+    // issues the same products (else ptxas serializes them).
+    auto step = [&](int it, uint32_t* pa, uint32_t* pa_next, bool last) {
       const int s = it % kStages, s_next = (it + 1) % kStages;
-      const bool next = it + 1 < t_count;
-      if (next) {
+      if (!last) {
         mbar_wait(full(s_next), ((it + 1) / kStages) & 1);
         __syncwarp();
       }
+      if (rescale) {
 #pragma unroll
-      for (int i = 0; i < DH / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+        for (int i = 0; i < DH / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      }
       turn_begin(it + 1);
       wgmma_fence();
-      issue_pv(s);  // O += P V, V as stored ([key][d])
-      if (next) issue_s(s_next);
+      if (!last) {
+        issue_s(s_next);
+        wgmma_commit();
+      }
+      issue_pv(s, pa);  // O += P V, V as stored ([key][d])
       wgmma_commit();
       turn_end(it + 1);
-      wgmma_wait_all();
+      if (!last) {
+        wgmma_wait<1>();  // S is in; P V may still run
+        fence_regs<KT / 2>(sacc);
+        softmax(it + 1, pa_next);
+      }
+      wgmma_wait<0>();
       fence_regs<DH / 2>(o);
-      fence_regs<kKTile / 2>(sacc);
-      fence_regs<kKTile / 4>(pa);
+      fence_regs<KT / 4>(pa);
       mbar_arrive(empty(s));
-      if (next) softmax(it + 1);
+    };
+    for (int it = 0; it + 1 < t_count; ++it) {
+      if (it & 1)
+        step(it, pa1, pa0, false);
+      else
+        step(it, pa0, pa1, false);
     }
+    if ((t_count - 1) & 1)
+      step(t_count - 1, pa1, pa0, true);
+    else
+      step(t_count - 1, pa0, pa1, true);
 
     // The partial (m, l, O) of this split into shared memory. The ring is
     // free once both groups are past their last tile: every copy into it
@@ -523,46 +615,46 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
       part_l[ra] = l_run[0];
       part_l[rb] = l_run[1];
     }
-  }
 
-  // Combine: CTA `rank` finishes rows [r0, r0 + rows) of the query tile
-  // from the S partials of its cluster, in rank order.
-  cluster.sync();
-  const int rows = kQTile / splits, r0 = rank * rows;
-  if (threadIdx.x < rows) {
-    const int r = r0 + threadIdx.x;
-    float M = -INFINITY;
-    for (int s = 0; s < splits; ++s)
-      M = fmaxf(M, cluster.map_shared_rank(part_m, s)[r]);
-    float L = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      const float m = cluster.map_shared_rank(part_m, s)[r];
-      const float w = m == -INFINITY ? 0.f : ex2(m - M);
-      wts[threadIdx.x * kMaxSplits + s] = w;
-      L += w * cluster.map_shared_rank(part_l, s)[r];
+    // Combine: CTA `rank` finishes rows [r0, r0 + rows) of the query tile
+    // from the S partials of its cluster, in rank order.
+    cluster.sync();
+    const int rows = kQTile / splits, r0 = rank * rows;
+    if (threadIdx.x < rows) {
+      const int r = r0 + threadIdx.x;
+      float M = -INFINITY;
+      for (int s = 0; s < splits; ++s)
+        M = fmaxf(M, cluster.map_shared_rank(part_m, s)[r]);
+      float L = 0.f;
+      for (int s = 0; s < splits; ++s) {
+        const float m = cluster.map_shared_rank(part_m, s)[r];
+        const float w = m == -INFINITY ? 0.f : ex2(m - M);
+        wts[threadIdx.x * kMaxSplits + s] = w;
+        L += w * cluster.map_shared_rank(part_l, s)[r];
+      }
+      inv[threadIdx.x] = 1.f / fmaxf(L, 1e-20f);
     }
-    inv[threadIdx.x] = 1.f / fmaxf(L, 1e-20f);
-  }
-  __syncthreads();
-  float* oh = out + ((size_t)bh * Nq + q0) * DH;
-  for (int i = threadIdx.x; i < rows * (DH / 4); i += kThreads) {
-    const int rl = i / (DH / 4), c = (i % (DH / 4)) * 4, r = r0 + rl;
-    if (q0 + r >= Nq) continue;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int s = 0; s < splits; ++s) {
-      const float w = wts[rl * kMaxSplits + s];
-      const float4 p = *reinterpret_cast<const float4*>(
-          cluster.map_shared_rank(part, s) + r * G::PART_STRIDE + c);
-      acc.x += w * p.x;
-      acc.y += w * p.y;
-      acc.z += w * p.z;
-      acc.w += w * p.w;
+    asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
+    float* oh = out + ((size_t)bh * Nq + q0) * DH;
+    for (int i = threadIdx.x; i < rows * (DH / 4); i += kConsumers) {
+      const int rl = i / (DH / 4), c = (i % (DH / 4)) * 4, r = r0 + rl;
+      if (q0 + r >= Nq) continue;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int s = 0; s < splits; ++s) {
+        const float w = wts[rl * kMaxSplits + s];
+        const float4 p = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(part, s) + r * G::PART_STRIDE + c);
+        acc.x += w * p.x;
+        acc.y += w * p.y;
+        acc.z += w * p.z;
+        acc.w += w * p.w;
+      }
+      const float f = inv[rl];
+      *reinterpret_cast<float4*>(oh + (size_t)r * DH + c) =
+          make_float4(acc.x * f, acc.y * f, acc.z * f, acc.w * f);
     }
-    const float f = inv[rl];
-    *reinterpret_cast<float4*>(oh + (size_t)r * DH + c) =
-        make_float4(acc.x * f, acc.y * f, acc.z * f, acc.w * f);
+    cluster.sync();  // no CTA leaves while its partial may still be read
   }
-  cluster.sync();  // no CTA leaves while its partial may still be read
 }
 
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so the
@@ -595,7 +687,7 @@ EncodeTiled encode_tiled() {
 template <int DH>
 bool make_map(CUtensorMap* map, const void* base, int rows, int BH,
               int box_rows) {
-  using G = Geo<DH>;
+  using G = Geo<DH, 64>;  // the chunk width and swizzle, whatever the tile
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)DH, (cuuint64_t)rows,
@@ -611,23 +703,23 @@ bool make_map(CUtensorMap* map, const void* base, int rows, int BH,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DH>
+template <int DH, int KT>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* mask, void* out, int BH, int H, int Nq, int Nk,
                    float scale, int splits, cudaStream_t stream) {
-  using G = Geo<DH>;
+  using G = Geo<DH, KT>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        G::SMEM);
+        attention_kernel<DH, KT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   CUtensorMap tm_q, tm_k, tm_v;
   if (!make_map<DH>(&tm_q, q, Nq, BH, kQTile) ||
-      !make_map<DH>(&tm_k, k, Nk, BH, kKTile) ||
-      !make_map<DH>(&tm_v, v, Nk, BH, kKTile))
+      !make_map<DH>(&tm_k, k, Nk, BH, KT) ||
+      !make_map<DH>(&tm_v, v, Nk, BH, KT))
     return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, (Nq + kQTile - 1) / kQTile, BH);
@@ -642,28 +734,40 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t e = cudaLaunchKernelEx(
-      &cfg, attention_kernel<DH>, tm_q, tm_k, tm_v,
+      &cfg, attention_kernel<DH, KT>, tm_q, tm_k, tm_v,
       static_cast<const uint8_t*>(mask), static_cast<float*>(out), H, Nq, Nk,
       scale);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+template <int KT>
+cudaError_t launch_dh(const void* q, const void* k, const void* v,
+                      const void* mask, void* out, int BH, int H, int Nq,
+                      int Nk, int dh, float scale, int splits,
+                      cudaStream_t s) {
+  switch (dh) {
+    case 32: return launch<32, KT>(q, k, v, mask, out, BH, H, Nq, Nk, scale, splits, s);
+    case 64: return launch<64, KT>(q, k, v, mask, out, BH, H, Nq, Nk, scale, splits, s);
+    case 128: return launch<128, KT>(q, k, v, mask, out, BH, H, Nq, Nk, scale, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
+// key_tile (64 or 96) and splits (1, 2, 4 or 8, at most one per key tile)
+// come from ops/attention.split_plan.
 extern "C" int gl_attention_fwd(const void* q, const void* k, const void* v,
                                 const void* mask, void* out, int BH, int H,
                                 int Nq, int Nk, int dh, float scale,
-                                int splits, void* stream) {
+                                int key_tile, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (Nk + kKTile - 1) / kKTile;
   if (BH <= 0 || Nq <= 0 || Nk <= 0 || H <= 0 || BH % H != 0 ||
+      (key_tile != 64 && key_tile != 96) ||
       (splits != 1 && splits != 2 && splits != 4 && splits != 8) ||
-      splits > n_tiles)
+      splits > (Nk + key_tile - 1) / key_tile)
     return (int)cudaErrorInvalidValue;
-  switch (dh) {
-    case 32: return (int)launch<32>(q, k, v, mask, out, BH, H, Nq, Nk, scale, splits, s);
-    case 64: return (int)launch<64>(q, k, v, mask, out, BH, H, Nq, Nk, scale, splits, s);
-    case 128: return (int)launch<128>(q, k, v, mask, out, BH, H, Nq, Nk, scale, splits, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (key_tile == 64)
+    return (int)launch_dh<64>(q, k, v, mask, out, BH, H, Nq, Nk, dh, scale, splits, s);
+  return (int)launch_dh<96>(q, k, v, mask, out, BH, H, Nq, Nk, dh, scale, splits, s);
 }

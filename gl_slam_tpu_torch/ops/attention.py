@@ -29,33 +29,42 @@ from . import _build
 _NEG = -1e9
 _HEAD_DIMS = (32, 64, 128)
 Q_TILE = 128          # query rows per CTA (two consumer warpgroups)
-KEY_TILE = 64         # keys per stage of the kernel's shared-memory ring
+SPLIT_KEY_TILE = 64   # keys per ring stage where the keys are split
+LONG_KEY_TILE = 96    # keys per ring stage where each CTA takes all keys
 MAX_SPLITS = 8        # the portable cluster size
-WAVE_CTAS = 128       # about one CTA on each of the H100's 132 SMs
+FILL_CTAS = 64        # CTAs at which a split call runs fastest (PERF.md)
 
 
-def split_plan(BH: int, Nq: int, Nk: int) -> tuple[int, int]:
-    """(query tile, key splits S) of the kernel for BH (set, head) pairs.
+def split_plan(BH: int, Nq: int, Nk: int) -> tuple[int, int, int]:
+    """(query tile, key tile, key splits S) of the kernel for BH (set, head)
+    pairs.
 
-    S doubles from 1 while the ceil(Nq / Q_TILE) * BH CTAs times S fill less
-    than one wave, up to MAX_SPLITS, and only while every split keeps at
-    least one key tile (so each split holds a key below Nk)."""
+    With at least FILL_CTAS query tiles the keys are not split and a CTA
+    walks them in 96-key tiles (fewer shared-memory bytes per product).
+    Otherwise S doubles from 1 while fewer than FILL_CTAS CTAs would run,
+    up to MAX_SPLITS, and only while every split keeps at least one 64-key
+    tile (so each split holds a key below Nk). On the H100 a split call
+    ran fastest at 64 CTAs (128 consumer warpgroups) at each re-observation
+    shape, ahead of 128 CTAs."""
     ctas = -(-Nq // Q_TILE) * BH
-    tiles = -(-Nk // KEY_TILE)
+    if ctas >= FILL_CTAS:
+        return Q_TILE, LONG_KEY_TILE, 1
+    tiles = -(-Nk // SPLIT_KEY_TILE)
     splits = 1
-    while (splits < MAX_SPLITS and ctas * splits < WAVE_CTAS
+    while (splits < MAX_SPLITS and ctas * splits < FILL_CTAS
            and 2 * splits <= tiles):
         splits *= 2
-    return Q_TILE, splits
+    return Q_TILE, SPLIT_KEY_TILE, splits
 
 
-def split_ranges(Nk: int, splits: int) -> list[tuple[int, int]]:
+def split_ranges(Nk: int, splits: int,
+                 key_tile: int = SPLIT_KEY_TILE) -> list[tuple[int, int]]:
     """The [start, stop) key range of each split: split s takes key tiles
-    s T / S to (s + 1) T / S of the T = ceil(Nk / KEY_TILE) tiles, as the
+    s T / S to (s + 1) T / S of the T = ceil(Nk / key_tile) tiles, as the
     kernel does."""
-    tiles = -(-Nk // KEY_TILE)
-    return [(s * tiles // splits * KEY_TILE,
-             min((s + 1) * tiles // splits * KEY_TILE, Nk))
+    tiles = -(-Nk // key_tile)
+    return [(s * tiles // splits * key_tile,
+             min((s + 1) * tiles // splits * key_tile, Nk))
             for s in range(splits)]
 
 
@@ -108,9 +117,8 @@ def _launcher():
     if fn.argtypes is None:            # the CDLL keeps one object per name
         fn.restype = _build.ctypes.c_int
         fn.argtypes = [_build.ctypes.c_void_p] * 5 \
-            + [_build.ctypes.c_int] * 5 + [_build.ctypes.c_float,
-                                           _build.ctypes.c_int,
-                                           _build.ctypes.c_void_p]
+            + [_build.ctypes.c_int] * 5 + [_build.ctypes.c_float] \
+            + [_build.ctypes.c_int] * 2 + [_build.ctypes.c_void_p]
     return fn
 
 
@@ -144,12 +152,12 @@ def attention_cuda(q, k, v, mask_k, scale: float):
         return out
     if Nk == 0:
         raise ValueError("attention_cuda: no keys")
-    _, splits = split_plan(B * H, Nq, Nk)
+    _, key_tile, splits = split_plan(B * H, Nq, Nk)
     fn = _launcher()
     m8 = mask_k.view(torch.uint8)
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(m8),
-             _build.ptr(out), B * H, H, Nq, Nk, dh, float(scale), splits,
-             _build.stream_of(q))
+             _build.ptr(out), B * H, H, Nq, Nk, dh, float(scale), key_tile,
+             splits, _build.stream_of(q))
     _build.LAUNCHES["attention"] += 1
     _build.check(err, "attention")
     return out

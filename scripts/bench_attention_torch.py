@@ -151,7 +151,7 @@ def main() -> int:
                    sdpa_profiler_ms=device_ms(torch, sdpa, args.reps))
         row["bound_ms"] = 4.0 * BH * Nq * Nk * dh / 989e12 * 1e3
         if hasattr(A, "split_plan"):
-            q_tile, splits = A.split_plan(BH, Nq, Nk)
+            q_tile, row["key_tile"], splits = A.split_plan(BH, Nq, Nk)
             row["splits"] = splits
             row["ctas"] = -(-Nq // q_tile) * BH * splits
         # Host time per call: the median of 5 rounds of back-to-back calls.

@@ -28,9 +28,9 @@ def cuda_device():
 
 
 # (lead, Nq, Nk, dh, empty first split): ragged shapes; the four
-# re-observation shapes, which the kernel splits over 4-8 CTAs; a mask that
-# empties the first split with Nk not a multiple of S x 64; Nq < 64 split
-# 8 ways.
+# re-observation shapes, which the kernel splits over 2-4 CTAs; a mask that
+# empties the first split with Nk not a multiple of S x the key tile;
+# Nq < 64 split 8 ways.
 ATTN_CASES = [((3,), 100, 70, 128, False), ((), 64, 200, 64, False),
               ((2, 2), 17, 9, 32, False),
               ((), 1024, 1024, 128, False), ((), 2048, 2048, 128, False),
@@ -46,10 +46,10 @@ def test_attention_kernel_matches_plain(cuda_device, lead, Nq, Nk, dh,
     q, k, v = (torch.randn(*lead, 2, n, dh, generator=g, device=cuda_device)
                .to(torch.bfloat16) for n in (Nq, Nk, Nk))
     mask = torch.rand(*lead, Nk, generator=g, device=cuda_device) < 0.6
-    splits = t_attn.split_plan(q.numel() // (Nq * dh), Nq, Nk)[1]
+    _, key_tile, splits = t_attn.split_plan(q.numel() // (Nq * dh), Nq, Nk)
     if masked:
-        assert splits > 1 and Nk % (64 * splits)
-        mask[..., :t_attn.split_ranges(Nk, splits)[0][1]] = False
+        assert splits > 1 and Nk % (key_tile * splits)
+        mask[..., :t_attn.split_ranges(Nk, splits, key_tile)[0][1]] = False
     else:
         mask.view(-1, Nk)[0] = False       # a set with every key masked
     before = _build.LAUNCHES["attention"]

@@ -83,7 +83,8 @@ def test_attention_plain_bf16_rounds_p_like_jax():
     assert bool(((got - torch.from_numpy(ref)).abs() <= tol).all())
 
 
-def _attn_kernel_order(q, k, v, mask, scale, splits=1):
+def _attn_kernel_order(q, k, v, mask, scale, splits=1,
+                       key_tile=t_attn.SPLIT_KEY_TILE):
     """The CUDA kernel's arithmetic in plain torch. The keys are cut into
     `splits` contiguous ranges of whole key tiles (ops/attention.
     split_ranges); each split walks its tiles with a running max m, rounds
@@ -94,12 +95,12 @@ def _attn_kernel_order(q, k, v, mask, scale, splits=1):
     lg = torch.where(mask[..., None, None, :], lg, -1e9)
     vf = v.float()
     parts = []
-    for a, b in t_attn.split_ranges(k.shape[-2], splits):
+    for a, b in t_attn.split_ranges(k.shape[-2], splits, key_tile):
         m = torch.full(lg.shape[:-1] + (1,), -torch.inf)
         l = torch.zeros_like(m)
         o = torch.zeros(lg.shape[:-1] + (v.shape[-1],))
-        for j in range(a, b, t_attn.KEY_TILE):
-            x = lg[..., j:min(j + t_attn.KEY_TILE, b)]
+        for j in range(a, b, key_tile):
+            x = lg[..., j:min(j + key_tile, b)]
             m_new = torch.maximum(m, x.amax(-1, keepdim=True))
             corr = torch.exp(m - m_new)
             p = torch.exp(x - m_new)
@@ -121,28 +122,31 @@ def test_attention_tolerance_covers_kernel_rounding_and_no_more():
     split made only of masked keys and a set with every key masked; a
     dropped key tile lies far outside it."""
     g = torch.Generator().manual_seed(6)
-    Nk = 520                             # 9 key tiles, the last one ragged
+    kt = t_attn.SPLIT_KEY_TILE
+    Nk = 8 * kt - 24                     # 8 key tiles, the last one ragged
     k, v = (torch.randn(3, 2, Nk, 64, generator=g).to(torch.bfloat16)
             for _ in range(2))
     q = (0.75 * k.float()[..., (torch.arange(96) * 97) % Nk, :]).to(
         torch.bfloat16)                  # each query aims at one key
     mask = torch.rand(3, Nk, generator=g) < 0.8
     mask[1] = False                      # every key masked
-    mask[2, :128] = False                # the first split at S = 4, 8
+    mask[2, :2 * kt] = False             # the first split at S = 4, 8
     ref = t_attn.attention_plain(q, k, v, mask, 0.125)
     tol = t_attn.attention_tolerance(q, k, v, mask, 0.125)
     # outputs stand far above the bound (the all-masked set is held to
     # the mean of v below)
     assert float(ref[[0, 2]].abs().median() / tol[[0, 2]].median()) >= 10
     dropped = mask.clone()
-    dropped[:, 192:256] = False          # one 64-key tile lost
-    for splits in (1, 2, 4, 8):
-        got = _attn_kernel_order(q, k, v, mask, 0.125, splits)
+    dropped[:, 3 * kt:4 * kt] = False    # one key tile lost
+    # the unsplit walk in long key tiles, and the splits in short ones
+    for splits, key_tile in ((1, t_attn.LONG_KEY_TILE), (1, kt), (2, kt),
+                             (4, kt), (8, kt)):
+        got = _attn_kernel_order(q, k, v, mask, 0.125, splits, key_tile)
         assert bool(((got - ref).abs() <= tol).all()), splits
         # every key masked: the uniform mean of v
         torch.testing.assert_close(got[1], v[1].float().mean(
             -2, keepdim=True).expand_as(got[1]), rtol=0, atol=1e-5)
-        gap = (_attn_kernel_order(q, k, v, dropped, 0.125, splits)
+        gap = (_attn_kernel_order(q, k, v, dropped, 0.125, splits, key_tile)
                - ref).abs() / tol
         assert float(gap.max()) > 10, splits
 
@@ -159,21 +163,26 @@ PLAN_SHAPES = [("prologue", 32, 2048, 2048), ("reobs", 2, 1024, 1024),
 @pytest.mark.parametrize("kind,BH,Nq,Nk", PLAN_SHAPES)
 def test_split_plan_fills_the_card_and_keeps_keys_in_every_split(kind, BH,
                                                                  Nq, Nk):
-    q_tile, splits = t_attn.split_plan(BH, Nq, Nk)
+    q_tile, key_tile, splits = t_attn.split_plan(BH, Nq, Nk)
     assert q_tile == t_attn.Q_TILE and splits in (1, 2, 4, 8)
-    ranges = t_attn.split_ranges(Nk, splits)
+    assert key_tile == (t_attn.LONG_KEY_TILE if splits == 1 and
+                        -(-Nq // q_tile) * BH >= t_attn.FILL_CTAS
+                        else t_attn.SPLIT_KEY_TILE)
+    ranges = t_attn.split_ranges(Nk, splits, key_tile)
     assert len(ranges) == splits and ranges[0][0] == 0
     assert ranges[-1][1] == Nk
     for (a, b), (c, _) in zip(ranges, ranges[1:] + [(Nk, Nk)]):
         assert a < b <= Nk and b == c   # contiguous, each below Nk
-        assert a % t_attn.KEY_TILE == 0
+        assert a % key_tile == 0
     ctas = -(-Nq // q_tile) * BH * splits
     if kind == "prologue":
-        assert splits == 1
+        assert splits == 1 and key_tile == t_attn.LONG_KEY_TILE
     if kind == "reobs":
-        assert ctas >= 128
-    # no more splits than a wave needs
-    assert splits == 1 or ctas // 2 < t_attn.WAVE_CTAS
+        # A CTA holds two 64-row consumer warpgroups: 64 CTAs give 128
+        # warpgroups, about one per SM, the fastest split measured.
+        assert ctas * q_tile // 64 >= 128
+    # no more splits than that needs
+    assert splits == 1 or ctas // 2 < t_attn.FILL_CTAS
 
 
 def _asg_inputs(rng, B, N, M, Df):
