@@ -209,8 +209,7 @@ def check_attention(torch, gen, dev, report):
             torch.bfloat16)[:, None, None, :]
         row = dict(
             shape=name, key_tile=key_tile, splits=splits, ctas=ctas,
-            max_abs_err=err,
-            max_err_over_bound=over,
+            max_abs_err=err, max_err_over_bound=over,
             median_ref_over_bound=strength, masked_set_err_over_bound=uni_err,
             ms=time_ms(lambda: A.attention_cuda(q, k, v, mask, scale)),
             plain_ms=time_ms(lambda: A.attention_plain(q, k, v, mask, scale),
@@ -221,9 +220,8 @@ def check_attention(torch, gen, dev, report):
         report.append(row)
         del tol, diff
         print(f"  attention {name}: key split S={splits}, {ctas} CTAs, "
-              f"{key_tile}-key tiles; "
-              f"max|err| {err:.3g}, <= {over:.3g} x the "
-              f"bound, median|ref| {strength:.3g} x the bound; kernel "
+              f"{key_tile}-key tiles; max|err| {err:.3g}, <= {over:.3g} x "
+              f"the bound, median|ref| {strength:.3g} x the bound; kernel "
               f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa "
               f"{row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']})", flush=True)

@@ -112,16 +112,6 @@ def attention_tolerance(q, k, v, mask_k, scale: float):
     return (2.0 ** -7 + 2 * delta + Nk * 2.0 ** -22) * S + 1e-6
 
 
-def _launcher():
-    fn = _build.load("attention").gl_attention_fwd
-    if fn.argtypes is None:            # the CDLL keeps one object per name
-        fn.restype = _build.ctypes.c_int
-        fn.argtypes = [_build.ctypes.c_void_p] * 5 \
-            + [_build.ctypes.c_int] * 5 + [_build.ctypes.c_float] \
-            + [_build.ctypes.c_int] * 2 + [_build.ctypes.c_void_p]
-    return fn
-
-
 def attention_cuda(q, k, v, mask_k, scale: float):
     """The CUDA kernel. bf16 q/k/v, contiguous, head dim in {32, 64, 128}."""
     lead = q.shape[:-3]
@@ -153,7 +143,12 @@ def attention_cuda(q, k, v, mask_k, scale: float):
     if Nk == 0:
         raise ValueError("attention_cuda: no keys")
     _, key_tile, splits = split_plan(B * H, Nq, Nk)
-    fn = _launcher()
+    lib = _build.load("attention")
+    fn = lib.gl_attention_fwd
+    fn.restype = _build.ctypes.c_int
+    fn.argtypes = [_build.ctypes.c_void_p] * 5 + [_build.ctypes.c_int] * 5 \
+        + [_build.ctypes.c_float] + [_build.ctypes.c_int] * 2 \
+        + [_build.ctypes.c_void_p]
     m8 = mask_k.view(torch.uint8)
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(m8),
              _build.ptr(out), B * H, H, Nq, Nk, dh, float(scale), key_tile,

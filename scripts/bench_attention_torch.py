@@ -2,24 +2,28 @@
 """Time the port's attention kernel at the tracker's five path shapes.
 
     python3 scripts/bench_attention_torch.py [--root DIR] [--reps N]
+        [--sweep-splits]
 
 Imports gl_slam_tpu_torch from DIR (default: this checkout), builds its
 kernels, and at each path shape (the prologue's 8 pairs x 2 sets x 2 heads
 at 2048 x 2048, and the re-observation calls' 2 heads at (Nq, Nk) in
 {1024, 2048}^2, dh 128, inputs as chip_smoke.py makes them) holds the
 kernel against `attention_plain` within `attention_tolerance`. It prints
-one JSON line: the card, and per shape the kernel's ms (device time per
-launch: CUDA events around `reps` back-to-back launches that a spin kernel
-holds until all are issued; `events_ms` the same without the spin kernel,
-which the host bounds where a launch takes longer to issue than to run;
-`profiler_ms` the summed kernel durations from torch.profiler), one
-`F.scaled_dot_product_attention` call's ms the same three ways on the same
-inputs, the key split and CTA count
-where the checkout has `split_plan`, the error over its bound, and the host
-microseconds per
-`attention_cuda` call (host clock over back-to-back calls, no
-synchronisation inside). Two checkouts are compared by running this on
-each in turn on one card: parent, change, change, parent.
+one JSON line: the card, and per shape
+  - `ms`: the kernel's device time per launch, by CUDA events around
+    `reps` back-to-back launches that a spin kernel holds until all are
+    issued; `events_ms` the same without the spin kernel (which the host
+    bounds where a launch takes longer to issue than to run);
+  - `sdpa_ms` and `sdpa_events_ms` for one F.scaled_dot_product_attention
+    call on the same inputs;
+  - the key tile, split and CTA count where the checkout has `split_plan`,
+    and with --sweep-splits the time at every split S in {1, 2, 4, 8} of
+    each split shape;
+  - the error over its bound, and `host_us_per_call`, the host time per
+    `attention_cuda` call (host clock over back-to-back calls, no
+    synchronisation inside).
+Two checkouts are compared by running this on each in turn on one card:
+parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHUNK, HEADS, HEAD_DIM, N_KPTS, M_REOBS = 8, 2, 128, 2048, 1024
+SPIN_CYCLES = 50_000_000    # spin kernel ahead of a timed run, ~25 ms
 
 
 def time_ms(torch, fn, reps, warmup=3, spin=0):
@@ -53,25 +58,6 @@ def time_ms(torch, fn, reps, warmup=3, spin=0):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def device_ms(torch, fn, reps):
-    """Device time per call: the summed durations of the device activities
-    (kernels, copies) that `reps` calls issue, from torch.profiler. Unlike
-    CUDA events around back-to-back calls it leaves out the gaps in which
-    the device waits for the host."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not e.is_user_annotation)
-    return us / 1e3 / reps
 
 
 def path_cases(torch, gen, dev):
@@ -102,6 +88,9 @@ def main() -> int:
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--host-calls", type=int, default=100)
+    ap.add_argument("--sweep-splits", action="store_true",
+                    help="also time each re-observation shape at every key "
+                         "split S in 1, 2, 4, 8 (the checkout's split tile)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -141,19 +130,24 @@ def main() -> int:
             F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias,
                                            scale=scale)
 
-        spin = 50_000_000
+        spin = SPIN_CYCLES
         row = dict(shape=name, err_over_bound=over,
                    ms=time_ms(torch, kernel, args.reps, spin=spin),
                    events_ms=time_ms(torch, kernel, args.reps),
-                   profiler_ms=device_ms(torch, kernel, args.reps),
                    sdpa_ms=time_ms(torch, sdpa, args.reps, spin=spin),
-                   sdpa_events_ms=time_ms(torch, sdpa, args.reps),
-                   sdpa_profiler_ms=device_ms(torch, sdpa, args.reps))
+                   sdpa_events_ms=time_ms(torch, sdpa, args.reps))
         row["bound_ms"] = 4.0 * BH * Nq * Nk * dh / 989e12 * 1e3
         if hasattr(A, "split_plan"):
             q_tile, row["key_tile"], splits = A.split_plan(BH, Nq, Nk)
             row["splits"] = splits
             row["ctas"] = -(-Nq // q_tile) * BH * splits
+            if args.sweep_splits and splits > 1:
+                plan, row["sweep_ms"] = A.split_plan, {}
+                for S in (1, 2, 4, 8):
+                    A.split_plan = lambda *_, S=S: (q_tile, row["key_tile"], S)
+                    row["sweep_ms"][S] = time_ms(torch, kernel, args.reps,
+                                                 spin=spin)
+                A.split_plan = plan
         # Host time per call: the median of 5 rounds of back-to-back calls.
         rounds = []
         for _ in range(5):
