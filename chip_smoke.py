@@ -52,9 +52,9 @@ NMS_RADIUS = 4
 # Kernel shapes on the flagship path: N keypoints per frame, M synthetic
 # re-observation points, 2 heads of 128 dims, 256-d final projections.
 N_KPTS, M_REOBS, HEADS, HEAD_DIM, FEAT_DIM = 2048, 1024, 2, 128, 256
-# csrc/assignment.cu launches four kernels per call (row pass, column
-# combine, argmax pass, argmax combine); attention.cu and nms.cu launch one.
-ASSIGN_KERNELS_PER_CALL = 4
+# csrc/assignment.cu launches two kernels per call (the lse pass and the
+# argmax pass); attention.cu and nms.cu launch one.
+ASSIGN_KERNELS_PER_CALL = 2
 
 
 def expected_launches(n_chunks):
@@ -235,6 +235,7 @@ def assignment_cases(torch, gen, dev):
     cases = []
     for name, B, N, M in (
             (f"prologue {CHUNK}x{N_KPTS}x{N_KPTS}", CHUNK, N_KPTS, N_KPTS),
+            (f"bootstrap 1x{N_KPTS}x{N_KPTS}", 1, N_KPTS, N_KPTS),
             (f"reobs 1x{M_REOBS}x{N_KPTS}", 1, M_REOBS, N_KPTS)):
         f0 = (rnd(B, N, FEAT_DIM) / 4).to(torch.bfloat16)
         f1 = (rnd(B, M, FEAT_DIM) / 4).to(torch.bfloat16)
@@ -269,8 +270,13 @@ def check_assignment(torch, gen, dev, report):
         c0, c1 = F.logsigmoid(z0), F.logsigmoid(z1)
         args = (f0, f1, c0, c1, m0, m1, scale)
         out = AS.fused_reductions_cuda(*args)
+        again = AS.fused_reductions_cuda(*args)
         ref = AS.fused_reductions_plain(*args)
         torch.cuda.synchronize()
+        # The partials meet in a fixed order whichever CTA ends last.
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"assignment {name}: two calls differ")
+        del again
         nn0, v0, lse_r, nn1, v1, lse_c = out
         rnn0, rv0, rlse_r, rnn1, rv1, rlse_c = ref
         # f32 sums of the same 256 bf16 products in another order: values
@@ -301,21 +307,26 @@ def check_assignment(torch, gen, dev, report):
         worst = max(worst, err)
         B, N, Df = f0.shape
         M = f1.shape[1]
+        row_tile, col_tile, splits = AS.assign_plan(B, N, M)
+        ctas = -(-N // row_tile) * B * splits
         flops = 2 * 2.0 * B * N * M * Df            # two passes of f0 f1^T
         nbytes = 2 * (f0.numel() + f1.numel()) + 5 * (B * N + B * M) \
             + 12 * (B * N + B * M)
         row = dict(
-            shape=name, max_abs_err=err, tol=1e-3, index_diffs=n_diff,
+            shape=name, row_tile=row_tile, col_tile=col_tile, splits=splits,
+            ctas=ctas, max_abs_err=err, tol=1e-3, index_diffs=n_diff,
             ms=time_ms(lambda: AS.fused_reductions_cuda(*args)),
             plain_ms=time_ms(lambda: AS.fused_reductions_plain(*args),
                              reps=5),
             library_ms=time_ms(lambda: torch.matmul(f0, f1.transpose(1, 2))))
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
         report.append(row)
-        print(f"  assignment {name}: err {err:.3g} kernel {row['ms']:.4f} ms "
-              f"plain {row['plain_ms']:.4f} ms bmm {row['library_ms']:.4f} "
-              f"ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
-              flush=True)
+        print(f"  assignment {name}: column split S={splits}, {ctas} CTAs, "
+              f"{row_tile}-row x {col_tile}-column tiles; err {err:.3g}, "
+              f"{n_diff} index differences (gap {gap:.3g}), equal bits in two "
+              f"calls; kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} "
+              f"ms bmm {row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']})", flush=True)
     return worst
 
 
@@ -405,8 +416,7 @@ STAGES = ("extract", "extract.nms", "prologue.match", "prologue.essential",
           "track.reobserve_window", "track.reobserve_covis", "track.pose_lm",
           "track.insert_keyframe", "backend.ba", "backend.recycle")
 OWN_KERNELS = {"attention": ("attention_kernel",),
-               "assignment": ("pass_lse", "combine_lse", "pass_argmax",
-                              "combine_argmax"),
+               "assignment": ("assign_pass",),
                "nms": ("nms_kernel",)}
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")

@@ -60,10 +60,8 @@
 // aligned; mask (B, Nk) uint8 with B = BH / H; out (BH, Nq, DH) f32.
 
 #include <cooperative_groups.h>
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -104,104 +102,6 @@ struct Geo {
   static_assert(kQTile * PART_STRIDE * 4 <= kStages * 2 * KV_BYTES,
                 "the partial O reuses the ring");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase differs from `parity`.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// TMA: box (c0 = column, c1 = row, c2 = bh) of `map` into shared `dst`,
-// completion counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: start, leading and stride byte offsets,
-// swizzle mode.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// Keeps the compiler from touching (or reusing) the registers of an
-// asynchronous wgmma's operands until it has completed.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
-}
-
-// d[32] (+)= A (64 x 16) B (16 x 64), both from shared memory, K-major.
-__device__ __forceinline__ void wgmma_ss_m64n64k16(float* d, uint64_t da,
-                                                   uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
 
 // d[48] (+)= A (64 x 16) B (16 x 96), both from shared memory, K-major.
 __device__ __forceinline__ void wgmma_ss_m64n96k16(float* d, uint64_t da,
@@ -320,12 +220,6 @@ __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
   if constexpr (DH == 32) wgmma_rs_m64n32k16(o, a, db);
   else if constexpr (DH == 64) wgmma_rs_m64n64k16(o, a, db);
   else wgmma_rs_m64n128k16(o, a, db);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -657,50 +551,13 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no link against libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
 // Tensor map over (DH, rows, BH) bf16 with boxes of (one chunk, box_rows, 1).
 template <int DH>
 bool make_map(CUtensorMap* map, const void* base, int rows, int BH,
               int box_rows) {
   using G = Geo<DH, 64>;  // the chunk width and swizzle, whatever the tile
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)DH, (cuuint64_t)rows,
-                              (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)DH * 2,
-                                 (cuuint64_t)rows * DH * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)G::CC, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, G::TMA_SWIZZLE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_map_bf16(map, base, DH, rows, BH, G::CC, box_rows,
+                       G::TMA_SWIZZLE);
 }
 
 template <int DH, int KT>

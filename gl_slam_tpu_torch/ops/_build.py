@@ -4,12 +4,13 @@ Each source is compiled by `nvcc` into a shared library with a plain C
 interface and loaded with `ctypes` (no PyTorch headers, so a build takes
 seconds). Sources are built at first use into `csrc/build/` (listed in
 .gitignore), one `nvcc` process per source, all started together; the
-library name carries a hash of the source and flags, so an edited source is
-rebuilt and a stale library is never loaded. A missing `nvcc` or a failed
-build raises: there is no fallback for a CUDA tensor.
+library name carries a hash of the source, the shared headers and the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded. A missing `nvcc` or a failed build raises: there is no fallback for
+a CUDA tensor.
 
 Launch counters: every kernel wrapper adds to `LAUNCHES[name]` the number of
-kernels it launched (attention 1 per call, assignment 4, nms 1), where it
+kernels it launched (attention 1 per call, assignment 2, nms 1), where it
 launches them and nowhere else, so a run can show that the main path went
 through the kernels (chip_smoke.py resets and reads them).
 """
@@ -51,7 +52,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of source `name`, named by a hash of the source, of the
+    shared headers (csrc/*.cuh) it may include, and of the flags."""
     src = (CSRC / SOURCES[name]).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"libgl_{name}-{digest[:12]}.so"
 

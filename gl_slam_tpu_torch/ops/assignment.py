@@ -12,10 +12,13 @@ and no (N, M) tensor has to exist.
 `fused_reductions_plain` is the plain PyTorch version of those reductions
 (the JAX `_fused_reductions`, with a leading batch dimension);
 `fused_reductions_cuda` launches the hand-written kernel in
-csrc/assignment.cu that replaces the Pallas `_assign_kernel`. Masked pairs
-are -1e9 in the logits, masked rows/columns are excluded at -1e9 in the
-argmax objectives, and argmax ties go to the smallest index. The mutual-NN
-and threshold epilogue (`fused_assignment`) stays in PyTorch.
+csrc/assignment.cu that replaces the Pallas `_assign_kernel`: two launches
+(the lse pass, the argmax pass), each over 128-row tiles, with the columns
+of each pair split over several CTAs where the row tiles alone would not
+fill the card (`assign_plan`); the partials meet inside each launch.
+Masked pairs are -1e9 in the logits, masked rows/columns are excluded at
+-1e9 in the argmax objectives, and argmax ties go to the smallest index.
+The mutual-NN and threshold epilogue (`fused_assignment`) stays in PyTorch.
 """
 
 from __future__ import annotations
@@ -34,6 +37,32 @@ _NEG = -1e9
 # with index 0 and only a strictly larger value replaces it.
 _CBEST0 = float(torch.tensor(_NEG - 1.0, dtype=torch.float32))
 _FEAT_DIMS = (64, 128, 256)
+ROW_TILE = 128     # f0 rows per CTA (two consumer warpgroups of 64)
+COL_TILE = 64      # f1 rows (columns of sim) per ring stage
+FILL_CTAS = 128    # CTAs that a split call aims at (PERF.md)
+# The kernel's ticket counters per (device, stream): they must persist, as
+# each call leaves them at zero for the next (no memset launch per call).
+_TICKETS: dict = {}
+
+
+def assign_plan(B: int, N: int, M: int) -> tuple[int, int, int]:
+    """(row tile, column tile, column splits S) of the kernel for B pairs
+    of N x M.
+
+    The grid is (S, ceil(N / ROW_TILE), B). With at least FILL_CTAS row
+    tiles the columns are not split; otherwise S doubles from 1 while fewer
+    than FILL_CTAS CTAs would run, and only while every split keeps at
+    least one column tile (so each holds a column below M). Split s takes
+    column tiles s T / S to (s + 1) T / S of the T = ceil(M / COL_TILE), as
+    attention.split_ranges cuts keys. On the H100 the bootstrap and
+    re-observation shapes ran fastest at 128 CTAs, one per SM, ahead of 64
+    and 256."""
+    ctas = -(-N // ROW_TILE) * B
+    tiles = -(-M // COL_TILE)
+    splits = 1
+    while ctas * splits < FILL_CTAS and 2 * splits <= tiles:
+        splits *= 2
+    return ROW_TILE, COL_TILE, splits
 
 
 def fused_reductions_plain(f0, f1, c0, c1, m0, m1, scale: float):
@@ -61,11 +90,21 @@ def fused_reductions_plain(f0, f1, c0, c1, m0, m1, scale: float):
     return (nn0.to(torch.int32), v0, lse_r, nn1.to(torch.int32), v1, lse_c)
 
 
+def _tickets(dev, stream: int, n: int):
+    """The ticket counters of the kernel's in-launch combines on `dev` and
+    `stream`: int32 zeros, which every call leaves at zero again."""
+    key = (dev, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        _TICKETS[key] = t
+    return t
+
+
 def fused_reductions_cuda(f0, f1, c0, c1, m0, m1, scale: float):
-    """The CUDA kernel: four launches (row/column partials, column combine,
-    argmax partials, argmax combine), each added to the launch count. bf16
-    features, f32 c0/c1, bool masks, all contiguous on one device; feature
-    dim in {64, 128, 256}."""
+    """The CUDA kernel: two launches (lse pass, argmax pass), each added to
+    the launch count. bf16 features, f32 c0/c1, bool masks, all contiguous
+    on one device; feature dim in {64, 128, 256}."""
     lead = f0.shape[:-2]
     N, Df = f0.shape[-2:]
     M = f1.shape[-2]
@@ -105,23 +144,27 @@ def fused_reductions_cuda(f0, f1, c0, c1, m0, m1, scale: float):
     lse_c = torch.empty((*lead, M), dtype=f32, device=dev)
     if B == 0:
         return nn0, v0, lse_r, nn1, v1, lse_c
-    row_tiles = (N + 63) // 64
-    part_a = torch.empty((B, row_tiles, M), dtype=f32, device=dev)
-    part_b = torch.empty((B, row_tiles, M), dtype=f32, device=dev)
-    part_i = torch.empty((B, row_tiles, M), dtype=i32, device=dev)
-    cc1 = torch.empty((B, M), dtype=f32, device=dev)
+    row_tile, _, splits = assign_plan(B, N, M)
+    row_tiles = -(-N // row_tile)
+    # float2 partials: (B, S, N) per row and split (unused at S = 1),
+    # (B, row tiles, M) per column and row tile.
+    part_r = torch.empty((B, splits, N, 2) if splits > 1 else (2,),
+                         dtype=f32, device=dev)
+    part_c = torch.empty((B, row_tiles, M, 2), dtype=f32, device=dev)
+    stream = _build.stream_of(f0)
+    tickets = _tickets(dev, stream.value, B * (row_tiles + splits))
     lib = _build.load("assignment")
     fn = lib.gl_assignment_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 \
-        + [ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+           ctypes.POINTER(ctypes.c_int)]
     P = _build.ptr
     launched = ctypes.c_int(0)
     err = fn(P(f0), P(f1), P(c0), P(c1), P(m0.view(torch.uint8)),
              P(m1.view(torch.uint8)), P(nn0), P(v0), P(lse_r), P(nn1),
-             P(v1), P(lse_c), P(part_a), P(part_b), P(part_i), P(cc1),
-             B, N, M, Df, float(scale), _build.stream_of(f0),
-             ctypes.byref(launched))
+             P(v1), P(lse_c), P(part_r), P(part_c), P(tickets), B, N, M, Df,
+             float(scale), splits, stream, ctypes.byref(launched))
     _build.LAUNCHES["assignment"] += launched.value
     _build.check(err, "assignment")
     return nn0, v0, lse_r, nn1, v1, lse_c

@@ -251,6 +251,169 @@ def test_fused_assignment_matches_jax_xla():
     assert int(got.matches0[0, 1]) == 4      # the constructed match
 
 
+# The assignment kernel's path shapes (prologue, bootstrap, re-observation
+# at flagship width) and ragged ones.
+ASG_PLAN_SHAPES = [("prologue", 8, 2048, 2048), ("bootstrap", 1, 2048, 2048),
+                   ("reobs", 1, 1024, 2048), ("ragged", 1, 40, 65),
+                   ("ragged", 3, 1000, 777), ("ragged", 1, 1, 64),
+                   ("ragged", 2, 130, 90), ("ragged", 1, 200, 1000)]
+
+
+@pytest.mark.parametrize("kind,B,N,M", ASG_PLAN_SHAPES)
+def test_assign_plan_fills_the_card(kind, B, N, M):
+    row_tile, col_tile, splits = t_asg.assign_plan(B, N, M)
+    assert (row_tile, col_tile) == (t_asg.ROW_TILE, t_asg.COL_TILE)
+    assert splits >= 1 and splits & (splits - 1) == 0
+    # the kernel cuts the columns as the attention kernel cuts its keys
+    ranges = t_attn.split_ranges(M, splits, col_tile)
+    assert len(ranges) == splits and ranges[0][0] == 0
+    assert ranges[-1][1] == M
+    for (a, b), (c, _) in zip(ranges, ranges[1:] + [(M, M)]):
+        assert a < b <= M and b == c   # contiguous, each below M
+        assert a % col_tile == 0
+    ctas = -(-N // row_tile) * B * splits
+    if kind == "prologue":
+        assert splits == 1 and ctas >= t_asg.FILL_CTAS
+    if kind in ("bootstrap", "reobs"):
+        assert splits > 1 and ctas >= t_asg.FILL_CTAS >= 64
+    # no more splits than that needs
+    assert splits == 1 or ctas // 2 < t_asg.FILL_CTAS
+
+
+def _combine_lse(parts, tail=16):
+    """(m, s) partials combined in order, `tail` at a time (as the
+    kernel's combine_lse)."""
+    m, s = parts[0][0].clone().fill_(-torch.inf), torch.zeros_like(parts[0][1])
+    for k0 in range(0, len(parts), tail):
+        chunk = parts[k0:k0 + tail]
+        mc = torch.stack([m] + [q[0] for q in chunk]).amax(0)
+        sc = torch.where(m > -torch.inf, s * torch.exp(m - mc), 0.0)
+        for qm, qs in chunk:
+            sc = sc + torch.where(qm > -torch.inf, qs * torch.exp(qm - mc),
+                                  0.0)
+        m, s = mc, sc
+    return m, s
+
+
+def _combine_best(parts, v, i):
+    """(value, index) partials in order from (v, i): a strictly larger
+    value wins."""
+    for qv, qi in parts:
+        take = qv > v
+        v, i = torch.where(take, qv, v), torch.where(take, qi, i)
+    return v, i
+
+
+def _assign_kernel_order(f0, f1, c0, c1, m0, m1, scale, splits, row_tile=8,
+                         warp_rows=4, col_tile=4):
+    """csrc/assignment.cu's arithmetic in plain torch, for one pair, at
+    small tiles: the columns cut into `splits` ranges of whole column tiles
+    (ops/attention.split_ranges); rows carry an online (max, sum of exp)
+    or (best, first index) over their split's column tiles in order, the
+    splits then meet in split order; columns reduce over each warp's rows,
+    then over the warps of a row tile, then over the row tiles in order from
+    the TPU's carry (-1e9, 0). Masks act as min(logit, row fill, column
+    fill) with fills +inf (valid), -1e9 (masked)."""
+    N, M = f0.shape[0], f1.shape[0]
+    sim = f0 @ f1.T
+    inf = torch.tensor(torch.inf)
+    rfill = torch.where(m0, inf, -1e9)[:, None]
+    cfill = torch.where(m1, inf, -1e9)[None, :]
+    ranges = t_attn.split_ranges(M, splits, col_tile)
+    row_tiles = [(r, min(r + row_tile, N)) for r in range(0, N, row_tile)]
+
+    def logits(mul):
+        return torch.minimum(torch.minimum(sim * mul, cfill), rfill)
+
+    def col_parts(obj, reduce):
+        # per row tile: per warp of `warp_rows` rows, then over the warps
+        out = []
+        for a, b in row_tiles:
+            warps = [reduce(obj[w:min(w + warp_rows, b)])
+                     for w in range(a, b, warp_rows)]
+            out.append(warps)
+        return out
+
+    # pass 1
+    l1 = logits(scale)
+    row_p = []
+    for a, b in ranges:
+        m = torch.full((N,), -torch.inf)
+        s = torch.zeros(N)
+        for j in range(a, b, col_tile):
+            x = l1[:, j:min(j + col_tile, b)]
+            mn = torch.maximum(m, x.amax(1))
+            s = s * torch.exp(m - mn).nan_to_num(0.0) + torch.exp(
+                x - mn[:, None]).sum(1)
+            m = mn
+        row_p.append((m, s))
+    m, s = _combine_lse(row_p)
+    lse_r = m + torch.log(s)
+
+    def lse_part(x):
+        mx = x.amax(0)
+        return mx, torch.exp(x - mx).sum(0)
+
+    tiles = [_combine_lse(w, tail=len(w)) for w in col_parts(l1, lse_part)]
+    m, s = _combine_lse(tiles)
+    lse_c = m + torch.log(torch.clamp_min(s, 1e-30))
+
+    # pass 2
+    l2 = logits(2 * scale)
+    gr = l2 + torch.where(m1, c1 - lse_c, -1e9)[None, :]
+    row_b = []
+    for a, b in ranges:
+        v, i = gr[:, a:b].max(1)        # the first index of the max
+        row_b.append((v, i + a))
+    v0, nn0 = _combine_best(row_b, torch.full((N,), -torch.inf),
+                            torch.full((N,), 2 ** 31 - 1))
+    gc = l2 + torch.where(m0, c0 - lse_r, -1e9)[:, None]
+    row_starts = iter([a for a, b in row_tiles
+                       for a in range(a, b, warp_rows)])
+
+    def best_part(x):
+        v, i = x.max(0)
+        return v, i + next(row_starts)
+
+    tiles = [_combine_best(w[1:], *w[0]) for w in col_parts(gc, best_part)]
+    v1, nn1 = _combine_best(tiles, torch.full((M,), -1e9),
+                            torch.zeros(M, dtype=torch.long))
+    return nn0, v0, lse_r, nn1, v1, lse_c
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+def test_assignment_kernel_order_matches_pallas_interpret(splits):
+    """The kernel's tile and combine order against the JAX kernel, with
+    ties, a fully masked row and column, a pair with one valid column and a
+    pair with nothing valid."""
+    rng = np.random.default_rng(9)
+    B, N, M, Df = 3, 40, 36, 64
+    f0, f1, z0, z1, m0, m1 = _asg_inputs(rng, B, N, M, Df)
+    m0[1] = m1[1] = False            # nothing valid
+    scale = 1.0 / np.sqrt(Df)
+    c0 = np.asarray(jax.nn.log_sigmoid(z0))
+    c1 = np.asarray(jax.nn.log_sigmoid(z1))
+    for b in range(B):
+        got = _assign_kernel_order(*(torch.tensor(a[b]) for a in
+                                     (f0, f1, c0, c1, m0, m1)), scale,
+                                   splits)
+        ref = j_asg._fused_reductions(f0[b], f1[b], c0[b], c1[b], m0[b],
+                                      m1[b], scale, 16, True)
+        for name, g, r in zip(("nn0", "v0", "lse_r", "nn1", "v1", "lse_c"),
+                              got, ref):
+            if name.startswith("nn"):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(r),
+                                              err_msg=f"{name} pair {b}")
+            else:
+                np.testing.assert_allclose(g.numpy(), np.asarray(r),
+                                           atol=TOL, rtol=TOL,
+                                           err_msg=f"{name} pair {b}")
+        if b == 0:
+            assert int(got[0][1]) == 4 and int(got[3][11]) == 7   # ties
+        if b == 1:
+            assert not got[0].any() and not got[3].any()
+
+
 def _nms_map(case):
     """(heat (B, H, W) float32 >= 0, radius)."""
     rng = np.random.default_rng(20)
