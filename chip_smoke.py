@@ -9,7 +9,7 @@ Phases (any failure exits non-zero and prints no result line):
      limit;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the tracker gives it (ragged masks, a fully masked row/column,
-     constructed ties, plateaus across tile and image borders, a real
+     constructed ties, plateaus across strip, segment and image borders, a real
      detector heatmap) within an elementwise error bound (attention,
      assignment) or bit for bit (NMS), and time kernel, plain version, a
      PyTorch library yardstick and the roofline bound;
@@ -22,7 +22,12 @@ Phases (any failure exits non-zero and prints no result line):
      and recovery counts and that the launch counters equal what the path
      implies;
   4. run the same tracker with BA off over the bootstrap plus one chunk of
-     the same frames, with its own launch-count check.
+     the same frames, with its own launch-count check;
+  5. run the BA-on tracker in pair mode (the learned pair sub-pixel head,
+     committed kspair_flagship.npz, refining the matched keypoints in every
+     chunk prologue) over the bootstrap plus two chunks of the same frames,
+     held to phase 3's guards, beside phase 3's run over the same frames,
+     with the host time of the refinement from a profiled run.
 The line before the last is the `kernels` JSON; the last line is the
 device JSON. Details go to chiprun_out/chip_smoke.json.
 """
@@ -48,6 +53,8 @@ CHUNK = 8
 N_CHUNKS = 3
 N_FRAMES = 2 + N_CHUNKS * CHUNK
 N_FRAMES_NO_BA = 2 + CHUNK      # the earlier path (BA off), at a cut depth
+N_CHUNKS_PAIR = 2
+N_FRAMES_PAIR = 2 + N_CHUNKS_PAIR * CHUNK   # the pair sub-pixel head's path
 NMS_RADIUS = 4
 # Kernel shapes on the flagship path: N keypoints per frame, M synthetic
 # re-observation points, 2 heads of 128 dims, 256-d final projections.
@@ -333,23 +340,32 @@ def check_assignment(torch, gen, dev, report):
 def nms_cases(torch, gen, dev, cfg, sp, stack):
     """(name, heat (B, 376, 1248) f32) at the two batch sizes the tracker
     extracts at (8 per chunk, 2 at the bootstrap): a quantised random map
-    (ties everywhere) with exact zeros and plateaus that cross the kernel's
-    32 x 64 tile borders and touch the image border, and the flagship
-    detector's own heatmap of rendered frames."""
+    (ties everywhere) with exact zeros, plateaus that touch the image border
+    and plateaus across every column-strip and row-segment corner of the
+    kernel's plan, with equal isolated maxima r apart across those borders;
+    and the flagship detector's own heatmap of rendered frames."""
+    from gl_slam_tpu_torch.ops import nms as NM
     from gl_slam_tpu_torch.slam import fused
     H8 = cfg.frontend.image_height + (-cfg.frontend.image_height) % 8
     W8 = cfg.frontend.image_width + (-cfg.frontend.image_width) % 8
+    r = NMS_RADIUS
     cases = []
     for B in (CHUNK, 2):
         heat = torch.rand(B, H8, W8, generator=gen, device=dev)
         heat = torch.round(heat * 64) / 64
         heat[torch.rand(B, H8, W8, generator=gen, device=dev) < 0.3] = 0.0
-        heat[0, 28:37, 50:80] = 1.97           # across a tile corner
-        heat[0, 120:136, 600:700] = 1.98       # across several tiles
+        plan = NM.nms_plan(B, H8, W8, r)
+        for x in range(plan["strip_cols"], W8, plan["strip_cols"]):
+            heat[:, 2, x - 1] = heat[:, 2, min(x - 1 + r, W8 - 1)] = 1.995
+            for y in range(plan["seg_rows"], H8, plan["seg_rows"]):
+                heat[:, y - 2:y + 2, x - 3:x + 3] = 1.97   # across a corner
+        for y in range(plan["seg_rows"], H8, plan["seg_rows"]):
+            heat[:, y - 1, 5] = heat[:, min(y - 1 + r, H8 - 1), 7] = 1.993
+        heat[0, 120:136, 600:700] = 1.98       # across several strips
         heat[0, :5, :7] = 1.99                 # image corner
         heat[-1, H8 - 3:, W8 - 40:] = 1.98     # bottom-right border
         heat[-1, H8 // 2, :] = 1.96            # a full row
-        heat[-1, :, 64] = 1.95                 # a full column on a tile edge
+        heat[-1, :, 64] = 1.95                 # a full column
         cases.append((f"random {B}x{H8}x{W8}", heat.contiguous()))
         with torch.no_grad():
             real, _ = fused.detector_heatmap(
@@ -390,8 +406,9 @@ def check_nms(torch, gen, dev, report, cfg, sp, stack):
         # tie-break: 2 x 2r + 2r flag tests.
         flops = 10.0 * r * heat.numel()
         nbytes = 2 * 4 * heat.numel()
+        plan = NM.nms_plan(B, H, W, r)
         row = dict(
-            shape=name, max_abs_err=err,
+            shape=name, max_abs_err=err, plan=plan,
             pixels_differing=n_diff, survivors=survivors,
             keypoints=int(got[2].sum()),
             ms=time_ms(lambda: NM.nms_cuda(heat, r)),
@@ -401,7 +418,9 @@ def check_nms(torch, gen, dev, report, cfg, sp, stack):
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes,
                                                  PEAK_F32_FLOPS)
         report.append(row)
-        print(f"  nms {name}: equal, {survivors} survivors, "
+        print(f"  nms {name}: {plan['strips']} strips x {plan['segments']} "
+              f"segments of {plan['seg_rows']} rows, {plan['ctas']} CTAs; "
+              f"equal, {survivors} survivors, "
               f"{row['keypoints']} keypoints; kernel {row['ms']:.4f} ms plain "
               f"{row['plain_ms']:.4f} ms max_pool2d {row['library_ms']:.4f} "
               f"ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
@@ -412,7 +431,8 @@ def check_nms(torch, gen, dev, report, cfg, sp, stack):
 # ---------------------------------------------------------------------------
 # Phase 3: the flagship-width slice
 
-STAGES = ("extract", "extract.nms", "prologue.match", "prologue.essential",
+STAGES = ("extract", "extract.nms", "prologue.match", "prologue.subpix",
+          "prologue.essential",
           "track.reobserve_window", "track.reobserve_covis", "track.pose_lm",
           "track.insert_keyframe", "backend.ba", "backend.recycle")
 OWN_KERNELS = {"attention": ("attention_kernel",),
@@ -632,6 +652,9 @@ def run_slice(torch, dev, details, cfg, sp, lg, scene, stack):
         rejected=res.num_rejected, mean_matches=res.mean_matches,
         mean_inliers=res.mean_inliers, ate_m=res.ate_m,
         ate_first_frames_m=ate_over(diag, scene, N_FRAMES_NO_BA),
+        ate_first_pair_frames_m=ate_over(diag, scene, N_FRAMES_PAIR),
+        mean_matches_first_pair_frames=float(
+            o.num_matches[:N_FRAMES_PAIR - 2].mean()),
         fps=res.fps, run_wall_s=run_s, launches=launches,
         expected_launches=want, num_ba_runs=res.num_ba_runs,
         num_recoveries=diag["num_recoveries"],
@@ -676,6 +699,67 @@ def run_no_ba(torch, dev, details, cfg, sp, lg, scene, stack):
     check(res.num_ba_runs == 0, "BA ran although it was switched off")
 
 
+def run_pair(torch, dev, details, cfg, sp, lg, scene, stack):
+    """The BA-on tracker with the pair sub-pixel head over the bootstrap +
+    two chunks of the same frames: a counted run held to phase 3's guards,
+    then a profiled run for the host time of `prologue.subpix`."""
+    from gl_slam_tpu_torch.ops import _build
+    from gl_slam_tpu_torch.train import e2e
+
+    head = e2e.load_flagship_subpix(os.path.join(ROOT, "checkpoints"),
+                                    device=dev)
+    check(head is not None, "checkpoints/kspair_flagship.npz is missing")
+
+    def once(diag):
+        return e2e.run_learned_e2e(sp, lg, scene, cfg, N_FRAMES_PAIR,
+                                   chunk=CHUNK, ba_every=CHUNK, device=dev,
+                                   seed=0, stack=stack[:N_FRAMES_PAIR],
+                                   diag_out=diag, subpix=head)
+
+    diag = {}
+    _build.reset_launch_counts()
+    res = once(diag)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = expected_launches(N_CHUNKS_PAIR)
+    cen = details["slice"]
+    print(f"  frames {res.num_frames} keyframes {res.num_keyframes} "
+          f"rejected {res.num_rejected} mean matches {res.mean_matches:.1f} "
+          f"(centroid run, same frames: "
+          f"{cen['mean_matches_first_pair_frames']:.1f}) ATE "
+          f"{res.ate_m:.4f} m (centroid run, same frames: "
+          f"{cen['ate_first_pair_frames_m']:.4f} m) BA runs "
+          f"{res.num_ba_runs} recoveries {diag['num_recoveries']} tracked "
+          f"fps {res.fps:.2f} launches {launches} (expected {want})",
+          flush=True)
+    check_run(res, diag, N_FRAMES_PAIR, launches, want, "pair-mode slice")
+    check(res.num_ba_runs == N_CHUNKS_PAIR,
+          f"pair mode: {res.num_ba_runs} BA runs, expected {N_CHUNKS_PAIR}")
+    check(diag["num_recoveries"] == 0,
+          f"pair mode: {diag['num_recoveries']} health-check recoveries")
+    check(diag["state"].prev_patches is not None,
+          "pair mode: the state carries no patches")
+    prof = profile_run(torch, lambda: once({}))
+    sub = prof["stages"].get("prologue.subpix", {})
+    check(sub.get("calls") == N_CHUNKS_PAIR,
+          f"pair mode: {sub.get('calls')} prologue.subpix markers, expected "
+          f"{N_CHUNKS_PAIR}")
+    print(f"  prologue.subpix: host {sub['host_ms']:.2f} ms over "
+          f"{sub['calls']} chunks (profiled run)", flush=True)
+    details["slice_pair"] = dict(
+        config="as phase 3, with PairSubpixHead (kspair_flagship.npz)",
+        frames=res.num_frames, keyframes=res.num_keyframes,
+        rejected=res.num_rejected, mean_matches=res.mean_matches,
+        mean_inliers=res.mean_inliers, ate_m=res.ate_m, fps=res.fps,
+        num_ba_runs=res.num_ba_runs, num_recoveries=diag["num_recoveries"],
+        launches=launches, expected_launches=want,
+        centroid_same_frames=dict(
+            ate_m=cen["ate_first_pair_frames_m"],
+            mean_matches=cen["mean_matches_first_pair_frames"]),
+        subpix_host_ms=sub["host_ms"], profile=prof,
+        num_matches=diag["outputs"].num_matches.tolist())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -692,6 +776,7 @@ def main() -> int:
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     details = {}
+    t_start = time.perf_counter()
     try:
         card = card_line()
         print(f"card: {card}", flush=True)
@@ -711,7 +796,8 @@ def main() -> int:
         slice_args = setup_slice(dev)
         cfg, sp, _, _, stack = slice_args
 
-        print("phase 2: kernels against their plain versions", flush=True)
+        print(f"phase 2: kernels against their plain versions "
+              f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
         gen = torch.Generator(device=dev).manual_seed(0)
         attn_rows, asg_rows, nms_rows = [], [], []
         attn_err = check_attention(torch, gen, dev, attn_rows)
@@ -721,12 +807,18 @@ def main() -> int:
         details["assignment"] = asg_rows
         details["nms"] = nms_rows
 
-        print("phase 3: flagship-width chunked tracker with window BA",
-              flush=True)
+        print(f"phase 3: flagship-width chunked tracker with window BA "
+              f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
         launches = run_slice(torch, dev, details, *slice_args)
-        print("phase 4: the same tracker with BA off, bootstrap + 1 chunk",
-              flush=True)
+        print(f"phase 4: the same tracker with BA off, bootstrap + 1 chunk "
+              f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
         run_no_ba(torch, dev, details, *slice_args)
+        print(f"phase 5: the tracker with BA and the pair sub-pixel head, "
+              f"bootstrap + 2 chunks [{time.perf_counter() - t_start:.0f} s]",
+              flush=True)
+        run_pair(torch, dev, details, *slice_args)
+        details["wall_s"] = time.perf_counter() - t_start
+        print(f"all phases passed [{details['wall_s']:.0f} s]", flush=True)
 
         kernels = []
         for name, rows, err, src, replaces in (

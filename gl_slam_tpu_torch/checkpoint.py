@@ -1,9 +1,9 @@
 """Carry the JAX package's trained weights into the port's modules.
 
-The committed checkpoints (`checkpoints/{sp,lg}_{tiny,flagship}.npz`) are
-flat npz trees keyed by `jax.tree_util.keystr` of the Flax parameter tree,
-e.g. "['params']['layer0']['self_attn']['q']['kernel']". This module reads
-them with numpy alone and turns them into the port's `state_dict`s:
+The committed checkpoints (`checkpoints/{sp,lg,kspair}_{tiny,flagship}.npz`)
+are flat npz trees keyed by `jax.tree_util.keystr` of the Flax parameter
+tree, e.g. "['params']['layer0']['self_attn']['q']['kernel']". This module
+reads them with numpy alone and turns them into the port's `state_dict`s:
 
   * Conv kernels go from HWIO to OIHW;
   * Dense kernels go from (in, out) to the `nn.Linear` layout (out, in);
@@ -101,6 +101,19 @@ def lightglue_state_dict(flat: Mapping[str, np.ndarray]) -> dict:
         else:
             raise KeyError(f"unexpected LightGlueNet parameter {key}")
         k, v = _leaf(name, p[-1], a)
+        out[k] = v
+    return out
+
+
+def pair_subpix_state_dict(flat: Mapping[str, np.ndarray]) -> dict:
+    """PairSubpixHead params (Flax `Dense_0..2`, in call order) -> the
+    port's PairSubpixHead state_dict (`dense0..2`)."""
+    out = {}
+    for key, a in flat.items():
+        p = _path(key)
+        if len(p) != 2 or not re.fullmatch(r"Dense_[0-2]", p[0]):
+            raise KeyError(f"unexpected PairSubpixHead parameter {key}")
+        k, v = _leaf(f"dense{p[0][-1]}", p[1], a)
         out[k] = v
     return out
 

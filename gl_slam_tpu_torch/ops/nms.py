@@ -17,6 +17,10 @@ and radius <= 16. The plain version passes linear pixel indices through
 float32 and so needs H * W < 2**24; the kernel compares positions, not
 indices, and has no such limit.
 
+The kernel streams rows through registers: a warp owns a strip of 128
+columns and a segment of rows (`nms_plan` gives the grid it launches for a
+map; csrc/nms.cu explains the design).
+
 Both top-k stages must break ties toward the lower index like `lax.top_k`:
 a suppressed map is mostly exact zeros (ops/select.topk_stable).
 """
@@ -59,8 +63,30 @@ def nms_plain(heat: torch.Tensor, radius: int) -> torch.Tensor:
     return _suppress_with_tiebreak(heat, _window_max(heat, radius), radius)
 
 
-def nms_cuda(heat: torch.Tensor, radius: int) -> torch.Tensor:
-    """The CUDA kernel: window max and tie-break in one launch."""
+def _c_entry(name: str, n_ptr: int, n_int: int, tail_ptr: int = 1):
+    fn = getattr(_build.load("nms"), name)
+    fn.restype = _build.ctypes.c_int
+    fn.argtypes = [_build.ctypes.c_void_p] * n_ptr \
+        + [_build.ctypes.c_int] * n_int + [_build.ctypes.c_void_p] * tail_ptr
+    return fn
+
+
+def nms_plan(B: int, H: int, W: int, radius: int,
+             seg_rows: int = 0) -> dict:
+    """The grid the kernel launches for a (B, H, W) map: column strips, the
+    columns each strip writes, rows per segment, segments and CTAs
+    (`seg_rows` <= 0: the kernel's default)."""
+    plan = (_build.ctypes.c_int * 5)()
+    fn = _c_entry("gl_nms_plan", 0, 5)
+    _build.check(fn(B, H, W, int(radius), int(seg_rows), plan), "nms plan")
+    return dict(zip(("strips", "strip_cols", "seg_rows", "segments", "ctas"),
+                    plan))
+
+
+def nms_cuda(heat: torch.Tensor, radius: int,
+             seg_rows: int = 0) -> torch.Tensor:
+    """The CUDA kernel: window max and tie-break in one launch. `seg_rows`
+    sets the rows per segment (<= 0: the kernel's default plan)."""
     if not heat.is_cuda:
         raise ValueError("nms_cuda: heat must be a CUDA tensor")
     if heat.dtype != torch.float32:
@@ -79,12 +105,9 @@ def nms_cuda(heat: torch.Tensor, radius: int) -> torch.Tensor:
     out = torch.empty_like(heat)
     if heat.numel() == 0:
         return out
-    fn = _build.load("nms").gl_nms_fwd
-    fn.restype = _build.ctypes.c_int
-    fn.argtypes = [_build.ctypes.c_void_p] * 2 + [_build.ctypes.c_int] * 4 \
-        + [_build.ctypes.c_void_p]
+    fn = _c_entry("gl_nms_fwd_seg", 2, 5)
     err = fn(_build.ptr(heat), _build.ptr(out), B, H, W, int(radius),
-             _build.stream_of(heat))
+             int(seg_rows), _build.stream_of(heat))
     _build.LAUNCHES["nms"] += 1
     _build.check(err, "nms")
     return out

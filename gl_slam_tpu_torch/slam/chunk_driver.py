@@ -13,8 +13,9 @@ each BA trigger starts a non-blocking copy of `t_cur` into pinned host
 memory, marked by a CUDA event, and consumes the copy started at the
 previous trigger (waiting on that event only, not on the stream). A
 non-finite pose rolls the state back to the last snapshot that was verified
-finite, up to two BA periods old. Snapshots alias the live state: state
-updates never write in place (slam/state.py).
+finite, up to two BA periods old. Snapshots alias the live state (all of
+it, the carried sub-pixel patches included): state updates never write in
+place (slam/state.py).
 
 Randomness: the essential RANSAC of the bootstrap and of every frame takes
 (hypotheses, 8) uniform draws, in the order bootstrap, then frame by frame.
@@ -47,6 +48,9 @@ class ChunkedPipeline:
         for each chunk of images: pipe.track_chunk(images, frame_idx0)
         pipe.finish()
 
+    `subpix_head`: an optional PairSubpixHead on the pipeline's device;
+    its chunks refine the matched keypoints with it (slam/fused.py).
+
     `ba_diag` appends to `ba_log`, per BA pass, its `ba.BADiag` (window
     reprojection before and after, live LM iterations: device scalars, read
     by the caller), the host time to issue the pass (ms) and, on a card, a
@@ -57,7 +61,7 @@ class ChunkedPipeline:
                  ba_every: int = 8, seed: int = 0, enable_ba: bool = True,
                  device=None,
                  draws: Optional[Callable[[int], torch.Tensor]] = None,
-                 ba_diag: bool = False):
+                 ba_diag: bool = False, subpix_head=None):
         if cfg.runtime.loop_closing:
             raise NotImplementedError(
                 "loop closing (slam/loopclose.py) is not ported yet; see "
@@ -69,9 +73,11 @@ class ChunkedPipeline:
         self.chunk = chunk
         self.sp_net = sp_net
         self.lg_net = lg_net
+        self.subpix_head = subpix_head
         self.chunk_fn = fused.build_chunk_fn(cfg, sp_net, lg_net, self.K,
-                                             chunk)
-        self.extract_fn = fused.build_extract_fn(cfg, sp_net)
+                                             chunk, subpix_head=subpix_head)
+        self.extract_fn = fused.build_extract_fn(cfg, sp_net,
+                                                 subpix_head=subpix_head)
         self.match_fn = fused.build_matcher(cfg, lg_net)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._draws = draws
@@ -109,10 +115,14 @@ class ChunkedPipeline:
     def bootstrap_from_images(self, img0, img1, gt_scale: float,
                               frame_idx0: int = 0):
         """Extract both frames, match them with the learned matcher and run
-        the two-view bootstrap."""
+        the two-view bootstrap. Under the pair sub-pixel head the state
+        carries frame 1's patches (the bootstrap pair itself keeps the
+        centroid refinement, as in the JAX package)."""
         cfg = self.cfg
         imgs = torch.stack([self._images(img0), self._images(img1)])
-        kp_b, d_b, v_b = self.extract_fn(imgs)
+        feats = self.extract_fn(imgs)
+        kp_b, d_b, v_b = feats[:3]
+        patches1 = feats[3][1] if len(feats) > 3 else None
         dev = self.device
         f0 = frontend.FrameFeatures(kp_b[0], d_b[0], v_b[0], torch.tensor(
             frame_idx0, dtype=torch.int32, device=dev))
@@ -120,11 +130,13 @@ class ChunkedPipeline:
             frame_idx0 + 1, dtype=torch.int32, device=dev))
         m = self.match_fn(f0.kpts, f0.desc, f0.valid, f1.kpts, f1.desc,
                           f1.valid)
-        st = frontend.init_track_state(cfg, device=dev)
+        st = frontend.init_track_state(
+            cfg, device=dev, patch=None if patches1 is None
+            else self.subpix_head.patch)
         self.state, out = frontend.bootstrap_step(
             cfg, self.K, st, f0, f1,
             torch.tensor(gt_scale, dtype=torch.float32, device=dev),
-            matches=m, u=self.draw(1)[0])
+            matches=m, u=self.draw(1)[0], patches1=patches1)
         self._frames = frame_idx0 + 2
         return out
 

@@ -49,6 +49,10 @@ class TrackState(NamedTuple):
     t_rel_norm: torch.Tensor  # latest inter-frame translation magnitude
     R_rel: torch.Tensor      # previous relative motion (constant velocity)
     t_rel: torch.Tensor
+    # (N, P, P) image patches around the previous keyframe's keypoints,
+    # carried only under pair-conditioned sub-pixel refinement
+    # (models/subpix.PairSubpixHead); None otherwise.
+    prev_patches: Optional[torch.Tensor] = None
 
 
 class TrackOutputs(NamedTuple):
@@ -95,7 +99,10 @@ def _check_supported(cfg: SLAMConfig) -> None:
             "path it needs) is not ported yet; see ROADMAP.md")
 
 
-def init_track_state(cfg: SLAMConfig, device=None) -> TrackState:
+def init_track_state(cfg: SLAMConfig, device=None,
+                     patch: Optional[int] = None) -> TrackState:
+    """`patch`: side of the carried previous-frame patches, set to the
+    PairSubpixHead's patch size when pair-conditioned refinement runs."""
     N = cfg.frontend.max_keypoints
     D = cfg.frontend.descriptor_dim
     m = init_map_state(cfg.map.max_keyframes, cfg.map.max_points, N, D,
@@ -111,7 +118,9 @@ def init_track_state(cfg: SLAMConfig, device=None) -> TrackState:
         prev_valid=torch.zeros((N,), dtype=torch.bool, device=device),
         R_cur=torch.eye(3, **kw), t_cur=torch.zeros(3, **kw),
         t_rel_norm=torch.ones((), **kw), R_rel=torch.eye(3, **kw),
-        t_rel=torch.zeros(3, **kw))
+        t_rel=torch.zeros(3, **kw),
+        prev_patches=None if patch is None
+        else torch.zeros((N, patch, patch), **kw))
 
 
 def track_state_from_numpy(fields, device=None) -> TrackState:
@@ -140,11 +149,12 @@ def track_state_from_numpy(fields, device=None) -> TrackState:
 
 def bootstrap_step(cfg: SLAMConfig, K, state: TrackState, f0: FrameFeatures,
                    f1: FrameFeatures, gt_scale, matches: match_ops.MatchResult,
-                   u: torch.Tensor):
+                   u: torch.Tensor, patches1: Optional[torch.Tensor] = None):
     """Two-view initialization: essential + cheirality from `matches`,
     translation scaled to `gt_scale`, triangulation at the bootstrap
     threshold, keyframes 0 and 1 inserted. `u`: (hypotheses, 8) RANSAC
-    draws."""
+    draws. `patches1`: frame 1's image patches, carried for the pair
+    sub-pixel head (None keeps the state's)."""
     g = cfg.geometry
     dev = f0.kpts.device
     m = matches
@@ -183,7 +193,8 @@ def bootstrap_step(cfg: SLAMConfig, K, state: TrackState, f0: FrameFeatures,
         map=mstate, prev_kpts=f1.kpts, prev_desc=f1.desc,
         prev_valid=f1.valid, R_cur=ess.R, t_cur=t_scaled,
         t_rel_norm=torch.linalg.vector_norm(t_scaled), R_rel=ess.R,
-        t_rel=t_scaled)
+        t_rel=t_scaled,
+        prev_patches=state.prev_patches if patches1 is None else patches1)
     zf = torch.zeros((), device=dev)
     zi = torch.zeros((), dtype=_I32, device=dev)
     out = TrackOutputs(
@@ -203,13 +214,16 @@ def bootstrap_step(cfg: SLAMConfig, K, state: TrackState, f0: FrameFeatures,
 def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
                     matches: match_ops.MatchResult,
                     ess_result: essential.EssentialResult, matcher=None,
-                    accept_gate: Optional[torch.Tensor] = None):
+                    accept_gate: Optional[torch.Tensor] = None,
+                    patches: Optional[torch.Tensor] = None):
     """Steady-state tracking of frame `f` against the previous keyframe.
 
     `matches` and `ess_result`: the prev<->cur matches and their essential
     result (the chunk prologue computes both). `matcher`: the learned
     matcher for the two re-observation passes (None = mutual-NN).
-    `accept_gate`: () bool ANDed into the frame acceptance."""
+    `accept_gate`: () bool ANDed into the frame acceptance. `patches`: the
+    frame's image patches, carried into the state when the frame is
+    accepted (pair sub-pixel refinement)."""
     _check_supported(cfg)
     g = cfg.geometry
     dev = f.kpts.device
@@ -387,7 +401,9 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
         R_cur=sel(R_cur, state.R_cur), t_cur=sel(t_cur, state.t_cur),
         t_rel_norm=sel(torch.clamp(torch.linalg.vector_norm(t_rel_post),
                                    1e-3, 10.0), state.t_rel_norm),
-        R_rel=sel(R_rel_post, state.R_rel), t_rel=sel(t_rel_cv, state.t_rel))
+        R_rel=sel(R_rel_post, state.R_rel), t_rel=sel(t_rel_cv, state.t_rel),
+        prev_patches=None if patches is None or state.prev_patches is None
+        else sel(patches, state.prev_patches))
 
     out = TrackOutputs(
         R=new_state.R_cur, t=new_state.t_cur, num_matches=_count(pair),

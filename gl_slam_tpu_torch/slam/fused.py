@@ -1,21 +1,22 @@
 """Chunked pipeline: batched extraction, batched prologue, per-frame loop.
 
-Counterpart of gl_slam_tpu/slam/fused.py (centroid sub-pixel refinement,
-the pass-1 prologue without in-loop recovery), with extraction through the
-NMS kernel as under the reference's `use_pallas_nms=True`. For a chunk of
-T frames:
+Counterpart of gl_slam_tpu/slam/fused.py (centroid or pair-conditioned
+sub-pixel refinement, the pass-1 prologue without in-loop recovery), with
+extraction through the NMS kernel as under the reference's
+`use_pallas_nms=True`. For a chunk of T frames:
 
   1. the extractor runs batched over the T images;
   2. a prologue matches all T consecutive pairs at once (one LightGlue
-     pass and one fused assignment over a pair axis) and runs their
+     pass and one fused assignment over a pair axis), refines the current
+     keypoints with the pair head when one is given, and runs the pairs'
      essential RANSACs batched;
   3. a Python loop runs the map-dependent tracking step frame by frame
      (two more LightGlue passes per frame for the re-observations).
 
 After a rejected frame, every later frame of the chunk is rejected too
 (its precomputed pair is stale), as the JAX version does under
-every-frame keyframing; the recovery path of motion-gated keyframing is
-not ported yet.
+every-frame keyframing; the recovery path of motion-gated keyframing and
+the single-view learned head (`SubpixHead`) are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from torch.profiler import record_function
 from ..config import SLAMConfig
 from ..geometry import essential as essential_mod
 from ..models.lightglue import normalize_keypoints
-from ..models.subpix import centroid_refine
+from ..models.subpix import (PairSubpixHead, centroid_refine,
+                             gather_patches, pair_refine_scatter)
 from ..models.superpoint import sample_descriptors
 from ..ops import assignment as assignment_ops
 from ..ops import match as match_ops
@@ -47,12 +49,28 @@ def detector_heatmap(cfg: SLAMConfig, sp_net, images):
     return heat * row_ok[None, :, None] * col_ok[None, None, :], grid
 
 
-def build_extract_fn(cfg: SLAMConfig, sp_net):
+def _pair_mode(subpix_head) -> bool:
+    if subpix_head is None:
+        return False
+    if not isinstance(subpix_head, PairSubpixHead):
+        raise NotImplementedError(
+            "only the pair-conditioned sub-pixel head (PairSubpixHead) is "
+            "ported; the single-view SubpixHead is not yet, see ROADMAP.md")
+    return True
+
+
+def build_extract_fn(cfg: SLAMConfig, sp_net, subpix_head=None):
     """fn(images (B, H, W) in [0, 1]) -> (kpts (B, N, 2), desc (B, N, D),
     valid (B, N)): CNN forward, NMS + top-K, centroid refinement and
     descriptor sampling. On the card the NMS is the hand-written kernel
-    (ops/nms.nms dispatches on the heatmap's device)."""
+    (ops/nms.nms dispatches on the heatmap's device).
+
+    With a PairSubpixHead the per-frame refinement here stays the centroid:
+    the learned refinement is pair-conditioned and runs on matched
+    keypoints in build_chunk_fn's prologue; a fourth output holds the
+    (B, N, P, P) image patches around round(kpts) that the head reads."""
     N = cfg.frontend.max_keypoints
+    pair_mode = _pair_mode(subpix_head)
 
     def extract_batch(images):
         heat, grid = detector_heatmap(cfg, sp_net, images)
@@ -61,7 +79,11 @@ def build_extract_fn(cfg: SLAMConfig, sp_net):
         kpts = kpts.float()
         src = images if cfg.frontend.subpix_source == "image" else heat
         kpts = centroid_refine(src, kpts, cfg.frontend.subpix_patch)
-        return kpts, sample_descriptors(grid, kpts), valid
+        desc = sample_descriptors(grid, kpts)
+        if pair_mode:
+            return kpts, desc, valid, gather_patches(
+                images, torch.round(kpts), subpix_head.patch)
+        return kpts, desc, valid
 
     return extract_batch
 
@@ -86,19 +108,39 @@ def build_matcher(cfg: SLAMConfig, lg_net):
     return lg_match
 
 
-def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int):
+def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int,
+                   subpix_head=None, prologue: bool = True):
     """fn(state, images (T, H, W), frame_idx0, u (T, hypotheses, 8)) ->
-    (state, list of T TrackOutputs). `u` holds each pair's RANSAC draws."""
+    (state, list of T TrackOutputs). `u` holds each pair's RANSAC draws.
+
+    With a PairSubpixHead (`subpix_head`), the prologue refines each pair's
+    matched CURRENT keypoints from both endpoint patches, descriptors and
+    the match score between matching and the essential RANSAC, which then
+    runs on the refined coordinates; the refined keypoints (descriptors are
+    not resampled) and the patches go on into the per-frame loop. The
+    state must carry `prev_patches` (init_track_state(patch=...)). The
+    refinement needs the batched prologue: `prologue=False` (the JAX
+    package's serial layout, not ported) raises."""
     frontend._check_supported(cfg)
+    pair_mode = _pair_mode(subpix_head)
+    if pair_mode and not prologue:
+        raise ValueError("PairSubpixHead requires prologue=True")
+    if not prologue:
+        raise NotImplementedError(
+            "the serial layout (prologue=False) is not ported; see "
+            "ROADMAP.md")
     g = cfg.geometry
-    extract_batch = build_extract_fn(cfg, sp_net)
+    thr = cfg.frontend.match_threshold
+    extract_batch = build_extract_fn(cfg, sp_net, subpix_head=subpix_head)
     lg_match = build_matcher(cfg, lg_net)
     reobs_matcher = lg_match if cfg.frontend.reobs_matcher == "lightglue" \
         else None
 
     def chunk_fn(state: frontend.TrackState, images, frame_idx0: int, u):
         with record_function("extract"):
-            kpts_b, desc_b, valid_b = extract_batch(images)
+            feats = extract_batch(images)
+        kpts_b, desc_b, valid_b = feats[:3]
+        patches_b = feats[3] if pair_mode else None
         # Pair t = (frame t-1, frame t); pair 0 uses the stored
         # last-accepted features.
         kp0_b = torch.cat([state.prev_kpts[None], kpts_b[:-1]])
@@ -106,8 +148,17 @@ def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int):
         v0_b = torch.cat([state.prev_valid[None], valid_b[:-1]])
         with record_function("prologue.match"):
             m_b = lg_match(kp0_b, d0_b, v0_b, kpts_b, desc_b, valid_b)
-        pairf = match_ops.score_filter(m_b.matches0, m_b.mscores0,
-                                       cfg.frontend.match_threshold)
+        pairf = match_ops.score_filter(m_b.matches0, m_b.mscores0, thr)
+        if pair_mode:
+            # refine the matched current keypoints; pair t-1's refinement
+            # of frame t-1 reaches pair t through kp0_b
+            with record_function("prologue.subpix"):
+                pat0_b = torch.cat([state.prev_patches[None],
+                                    patches_b[:-1]])
+                kpts_b = pair_refine_scatter(
+                    subpix_head, pat0_b, patches_b, d0_b, desc_b, kpts_b,
+                    m_b.matches0, m_b.mscores0, pairf)
+            kp0_b = torch.cat([state.prev_kpts[None], kpts_b[:-1]])
         uv0, uv1, pairf = match_ops.gather_matched(kp0_b, kpts_b,
                                                    m_b.matches0, pairf)
         with record_function("prologue.essential"):
@@ -130,7 +181,8 @@ def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int):
             ess = essential_mod.EssentialResult(*(x[i] for x in ess_b))
             state, out = frontend.track_step_impl(
                 cfg, K, state, f, matches=m, ess_result=ess,
-                matcher=reobs_matcher, accept_gate=ok_prev)
+                matcher=reobs_matcher, accept_gate=ok_prev,
+                patches=None if patches_b is None else patches_b[i])
             ok_prev = out.frame_ok
             outs.append(out)
         return state, outs

@@ -1,13 +1,15 @@
 """End-to-end learned tracking on a rendered scene, scored as ATE.
 
 Counterpart of the inference half of gl_slam_tpu/train/e2e.py: build the
-SuperPoint and LightGlue networks at the committed checkpoints' shapes,
-load their weights, and track a rendered sequence through the chunked
-pipeline with its periodic window BA. Training is not ported.
+SuperPoint and LightGlue networks and the pair sub-pixel head at the
+committed checkpoints' shapes, load their weights, and track a rendered
+sequence through the chunked pipeline with its periodic window BA.
+Training and the single-view sub-pixel head are not ported.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -20,6 +22,7 @@ from ..config import (FLAGSHIP_DESC_DIM, FLAGSHIP_LG, FLAGSHIP_SP_CHANNELS,
 from ..device import resolve_device
 from ..io import synthetic
 from ..models.lightglue import LightGlueNet
+from ..models.subpix import PairSubpixHead
 from ..models.superpoint import SuperPointNet
 from ..slam.chunk_driver import ChunkedPipeline
 
@@ -66,6 +69,38 @@ def load_tiny_frontend(ckpt_dir: str = "checkpoints", device=None,
                           TINY_LG, device, dtype)
 
 
+def _load_pair_subpix(ckpt_dir, name, D, device, dtype, pair):
+    if not pair:
+        raise NotImplementedError(
+            "the single-view SubpixHead (ks_*.npz) is not ported yet; see "
+            "ROADMAP.md")
+    path = ckpt.params_path(ckpt_dir, name)
+    if not os.path.exists(path):
+        return None
+    head = PairSubpixHead(D, patch=7, offset_range=1.5,
+                          dtype=torch.bfloat16 if dtype is None else dtype)
+    ckpt.load_module(head, path, ckpt.pair_subpix_state_dict)
+    return head.to(resolve_device(device)).eval()
+
+
+def load_flagship_subpix(ckpt_dir: str = "checkpoints", pair: bool = True,
+                         device=None,
+                         dtype: Optional[torch.dtype] = None):
+    """The trained flagship pair sub-pixel head (kspair_flagship.npz: D 256,
+    7 x 7 patches, input width 611) as a PairSubpixHead; None if the
+    checkpoint is missing. `dtype`: the hidden layers' compute dtype
+    (default bfloat16, as the JAX package)."""
+    return _load_pair_subpix(ckpt_dir, "kspair_flagship", FLAGSHIP_DESC_DIM,
+                             device, dtype, pair)
+
+
+def load_tiny_subpix(ckpt_dir: str = "checkpoints", pair: bool = True,
+                     device=None, dtype: Optional[torch.dtype] = None):
+    """The tiny preset's pair sub-pixel head (kspair_tiny.npz, D 64)."""
+    return _load_pair_subpix(ckpt_dir, "kspair_tiny", TINY_DESC_DIM, device,
+                             dtype, pair)
+
+
 def render_stack(scene, n_frames: int, max_keypoints: int,
                  domain: str = "clean") -> np.ndarray:
     """The first `n_frames` rendered frames, (n, H, W) float32."""
@@ -81,7 +116,7 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
                     draws: Optional[Callable[[int], torch.Tensor]] = None,
                     stack: Optional[np.ndarray] = None,
                     diag_out: Optional[dict] = None,
-                    ba_diag: bool = False) -> E2EResult:
+                    ba_diag: bool = False, subpix=None) -> E2EResult:
     """Bootstrap on frames 0-1, then track whole chunks of `chunk` frames of
     `scene`, with a window BA pass every `ba_every` frames (rounded to whole
     chunks) when `cfg.runtime.run_full_ba` is on (loop closing must be off
@@ -89,20 +124,23 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
     truth. `stack`: pre-rendered frames (else rendered here, outside the
     timed region). fps counts the tracked frames after the bootstrap over
     the host wall time up to the final device synchronisation. `diag_out`
-    receives the per-frame outputs, the trajectory, the recovery count and
-    the tracking state's size in bytes. `ba_diag` (off by default: it adds
-    two reprojection passes to every BA) also puts there, per BA pass,
-    `ba_reproj` (the window's mean reprojection error in px before and
-    after), `ba_lm_iters` (LM iterations before the carry froze) and
-    `ba_ms` (host time to issue the pass, and time between two CUDA events
-    around it or None on the CPU)."""
+    receives the per-frame outputs, the trajectory, the final tracking
+    state, the recovery count and the state's size in bytes. `ba_diag` (off
+    by default: it adds two reprojection passes to every BA) also puts
+    there, per BA pass, `ba_reproj` (the window's mean reprojection error
+    in px before and after), `ba_lm_iters` (LM iterations before the carry
+    froze) and `ba_ms` (host time to issue the pass, and time between two
+    CUDA events around it or None on the CPU). `subpix`: an optional PairSubpixHead
+    (load_*_subpix) that refines the matched keypoints in every chunk; None
+    keeps the centroid refinement."""
     dev = resolve_device(device)
     if stack is None:
         stack = render_stack(scene, n_frames, cfg.frontend.max_keypoints)
     pipe = ChunkedPipeline(cfg, scene.K, sp, lg, chunk=chunk,
                            ba_every=ba_every, seed=seed, device=dev,
                            draws=draws,
-                           ba_diag=diag_out is not None and ba_diag)
+                           ba_diag=diag_out is not None and ba_diag,
+                           subpix_head=subpix)
     c0 = -scene.poses_R[0].T @ scene.poses_t[0]
     c1 = -scene.poses_R[1].T @ scene.poses_t[1]
     pipe.bootstrap_from_images(stack[0], stack[1],
@@ -125,10 +163,11 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
     ate = float(np.sqrt(((c_est - c_gt) ** 2).sum(1).mean()))
     if diag_out is not None:
         diag_out.update(
-            outputs=o, R=R_est, t=t_est, frame_idx=fidx,
+            outputs=o, R=R_est, t=t_est, frame_idx=fidx, state=pipe.state,
             num_recoveries=pipe.num_recoveries,
             state_bytes=sum(x.numel() * x.element_size() for x in
-                            (*pipe.state.map, *pipe.state[1:])))
+                            (*pipe.state.map, *pipe.state[1:])
+                            if x is not None))
         if ba_diag:
             diag_out.update(
                 ba_reproj=[(float(d.reproj_before), float(d.reproj_after))

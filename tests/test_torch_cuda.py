@@ -139,27 +139,50 @@ def test_assignment_kernel_gives_the_same_bits_twice(cuda_device, B, N, M):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
-def _nms_maps(rng, B, H, W):
-    """Quantised random maps (ties everywhere) with exact zeros and plateaus
-    that cross the kernel's 32 x 64 tile borders and touch the image
-    border."""
+def _nms_maps(rng, B, H, W, r, seg_rows=0):
+    """Quantised random maps (ties everywhere) with exact zeros, plateaus at
+    the image border, and at every border of the kernel's plan (column
+    strips, row segments, the 4-column lanes around them): plateaus across
+    each strip and segment corner, and equal isolated maxima r columns or r
+    rows apart across those borders (the later one must go)."""
     heat = np.round(rng.uniform(size=(B, H, W)), 2).astype(np.float32)
     heat[rng.uniform(size=heat.shape) < 0.3] = 0.0
-    heat[0, 28:37, 50:80] = 0.97            # across a tile corner
     heat[0, :5, :7] = 0.99                  # image corner
     heat[-1, H - 3:, W - 40:] = 0.98        # bottom border
     heat[-1, H // 2, :] = 0.96              # a full row
+    plan = t_nms.nms_plan(B, H, W, r, seg_rows)
+    xs = range(plan["strip_cols"], W, plan["strip_cols"])
+    ys = range(plan["seg_rows"], H, plan["seg_rows"])
+    for b in range(B):
+        for x in xs:
+            heat[b, :, x - 1:x + 1] = np.minimum(heat[b, :, x - 1:x + 1],
+                                                 0.5)
+            heat[b, 2, x - 1] = heat[b, 2, min(x - 1 + r, W - 1)] = 0.995
+            for y in ys:
+                heat[b, y - 2:y + 2, x - 3:x + 3] = 0.97   # across a corner
+        for y in ys:
+            heat[b, y - 1, 5] = heat[b, min(y - 1 + r, H - 1), 5 + r // 2] = \
+                0.993
     return heat
 
 
-@pytest.mark.parametrize("B,H,W,r", [(2, 376, 1248, 4), (3, 70, 131, 3),
-                                     (1, 33, 64, 1), (2, 40, 40, 0),
-                                     (1, 97, 200, 16)])
-def test_nms_kernel_equals_plain(cuda_device, B, H, W, r):
-    heat = torch.from_numpy(_nms_maps(np.random.default_rng(7), B, H, W)).to(
-        cuda_device)
+# (B, H, W, r, seg_rows): the path shapes (8 and 2 maps of 376 x 1248 at
+# r 4, the default plan); widths that are not multiples of 4 (131, 1241)
+# or of 32; maps shorter than one segment; segments of 1, 5 and 16 rows;
+# r 0, 1, 3, 4, 16; B 1.
+NMS_CASES = [(8, 376, 1248, 4, 0), (2, 376, 1248, 4, 0),
+             (1, 376, 1241, 4, 0), (3, 70, 131, 3, 0), (1, 33, 64, 1, 0),
+             (2, 40, 40, 0, 0), (1, 97, 200, 16, 0), (1, 9, 131, 4, 0),
+             (2, 12, 1248, 3, 0), (1, 60, 260, 4, 1), (2, 80, 1241, 4, 5),
+             (1, 100, 300, 16, 16), (1, 50, 96, 0, 7)]
+
+
+@pytest.mark.parametrize("B,H,W,r,seg_rows", NMS_CASES)
+def test_nms_kernel_equals_plain(cuda_device, B, H, W, r, seg_rows):
+    heat = torch.from_numpy(_nms_maps(np.random.default_rng(7), B, H, W, r,
+                                      seg_rows)).to(cuda_device)
     before = _build.LAUNCHES["nms"]
-    got = t_nms.nms(heat, r)
+    got = t_nms.nms_cuda(heat, r, seg_rows=seg_rows)
     assert _build.LAUNCHES["nms"] == before + 1
     # max and comparisons are exact: no tolerance
     assert torch.equal(got, t_nms.nms_plain(heat, r))
@@ -167,6 +190,18 @@ def test_nms_kernel_equals_plain(cuda_device, B, H, W, r):
     got = t_nms.detect_keypoints(heat, 256, 0.05, r)
     want = t_nms.detect_keypoints(heat.cpu(), 256, 0.05, r)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("W", [1248, 1241])
+def test_nms_kernel_on_an_unaligned_map(cuda_device, W):
+    """A map whose rows do not start on 16-byte boundaries (a contiguous
+    view at an odd offset) takes the kernel's scalar loads and stores."""
+    heat = _nms_maps(np.random.default_rng(3), 2, 50, W, 4)
+    buf = torch.zeros(heat.size + 1, device=cuda_device)
+    view = buf[1:].view(heat.shape)
+    view.copy_(torch.from_numpy(heat))
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    assert torch.equal(t_nms.nms(view, 4), t_nms.nms_plain(view, 4))
 
 
 def test_short_ba_run_on_the_card(cuda_device):
@@ -221,6 +256,41 @@ def test_short_ba_run_on_the_card(cuda_device):
     assert float(((on_card.pts_xyz.cpu() - on_cpu.pts_xyz).abs()
                   / dist).max()) < 1e-2
     assert int((on_card.pts_bad.cpu() != on_cpu.pts_bad).sum()) <= 3
+
+
+def test_pair_mode_run_on_the_card(cuda_device):
+    """The tiny pipeline in pair mode on the card through run_learned_e2e:
+    the pair sub-pixel head (bfloat16, kspair_tiny.npz) in every chunk
+    prologue, extraction through the NMS kernel, a BA pass per chunk."""
+    import dataclasses
+    import os
+
+    from gl_slam_tpu_torch import config as t_cfg
+    from gl_slam_tpu_torch.io import synthetic
+    from gl_slam_tpu_torch.train import e2e
+
+    ckpt = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
+    H, W, N, D = 240, 320, 128, t_cfg.TINY_DESC_DIM
+    cfg = t_cfg.micro_config(H, W, N, D)
+    cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime,
+                                                  loop_closing=False))
+    scene = synthetic.make_scene(num_landmarks=900, num_frames=12, height=H,
+                                 width=W, desc_dim=D, seed=11)
+    sp, lg = e2e.load_tiny_frontend(ckpt, device=cuda_device)
+    head = e2e.load_tiny_subpix(ckpt, device=cuda_device)
+    before = _build.LAUNCHES["nms"]
+    diag = {}
+    res = e2e.run_learned_e2e(sp, lg, scene, cfg, 12, chunk=5, ba_every=5,
+                              device=cuda_device,
+                              stack=e2e.render_stack(scene, 12, N),
+                              diag_out=diag, subpix=head)
+    assert _build.LAUNCHES["nms"] == before + 3     # one per extraction
+    assert res.num_keyframes == 12 and res.num_rejected == 0
+    assert res.num_ba_runs == 2 and diag["num_recoveries"] == 0
+    assert np.isfinite(diag["R"]).all() and np.isfinite(diag["t"]).all()
+    assert res.mean_matches > 50 and res.ate_m < 1.0, res
+    patches = diag["state"].prev_patches
+    assert patches.is_cuda and patches.shape == (N, 7, 7)
 
 
 def test_kernels_reject_what_they_do_not_take(cuda_device):

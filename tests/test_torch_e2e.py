@@ -78,11 +78,11 @@ def test_ba_does_not_degrade_ate(frontend, scene):
     assert with_ba.ate_m <= max(1.5 * without.ate_m, 0.1), (with_ba, without)
 
 
-def _tracked_pipe(frontend, scene, n_chunks):
+def _tracked_pipe(frontend, scene, n_chunks, subpix=None):
     sp, lg = frontend
     stack = e2e.render_stack(scene, 2 + 5 * n_chunks, N)
     pipe = ChunkedPipeline(_cfg(), scene.K, sp, lg, chunk=5, ba_every=5,
-                           device="cpu")
+                           device="cpu", subpix_head=subpix)
     c = [-scene.poses_R[i].T @ scene.poses_t[i] for i in (0, 1)]
     pipe.bootstrap_from_images(stack[0], stack[1],
                                float(np.linalg.norm(c[1] - c[0])))
@@ -96,16 +96,35 @@ def _assert_states_equal(a, b):
         if name == "map":
             for mname, mx, my in zip(x._fields, x, y):
                 assert torch.equal(mx, my), mname
+        elif x is None or y is None:          # prev_patches outside pair mode
+            assert x is None and y is None, name
         else:
             assert torch.equal(x, y), name
 
 
+def _tensors(state):
+    return [x for x in (*state.map, *state[1:]) if x is not None]
+
+
 def test_health_check_rolls_back_a_poisoned_pose(frontend, scene):
-    pipe = _tracked_pipe(frontend, scene, 2)
+    _poison_and_roll_back(frontend, scene, None)
+
+
+def test_health_check_rolls_back_the_carried_patches(frontend, scene):
+    """As above in pair mode: the snapshot, and so the rollback, carries the
+    pair sub-pixel head's patches of the last accepted frame."""
+    head = e2e.load_tiny_subpix(CKPT, device="cpu", dtype=torch.float32)
+    good = _poison_and_roll_back(frontend, scene, head)
+    assert good.prev_patches is not None
+    assert good.prev_patches.shape == (N, head.patch, head.patch)
+
+
+def _poison_and_roll_back(frontend, scene, subpix):
+    pipe = _tracked_pipe(frontend, scene, 2, subpix)
     assert pipe.num_ba_runs == 2 and pipe.num_recoveries == 0
     assert pipe._last_good is not None        # the first trigger, verified
     good = pipe._pending_health[2]            # the second, still pending
-    kept = [x.clone() for x in (*good.map, *good[1:])]
+    kept = [x.clone() for x in _tensors(good)]
     pipe.state = pipe.state._replace(
         t_cur=torch.full((3,), float("nan")))
     stack = e2e.render_stack(scene, 22, N)
@@ -122,7 +141,7 @@ def test_health_check_rolls_back_a_poisoned_pose(frontend, scene):
     assert pipe._pending_health is None
     _assert_states_equal(pipe.state, good)
     # the chunks tracked meanwhile wrote nothing into the snapshot's tensors
-    for x, y in zip(kept, (*good.map, *good[1:])):
+    for x, y in zip(kept, _tensors(good), strict=True):
         assert torch.equal(x, y)
     assert bool(torch.isfinite(pipe.state.t_cur).all())
     # Tracking goes on from the restored state (12 keyframes).
@@ -132,6 +151,7 @@ def test_health_check_rolls_back_a_poisoned_pose(frontend, scene):
     R, t, fidx = pipe.trajectory()
     assert list(fidx) == list(range(17))
     assert np.isfinite(R).all() and np.isfinite(t).all()
+    return good
 
 
 def test_bootstrap_from_state_continues_a_run(frontend, scene):
