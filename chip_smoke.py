@@ -27,7 +27,17 @@ Phases (any failure exits non-zero and prints no result line):
      committed kspair_flagship.npz, refining the matched keypoints in every
      chunk prologue) over the bootstrap plus two chunks of the same frames,
      held to phase 3's guards, beside phase 3's run over the same frames,
-     with the host time of the refinement from a profiled run.
+     with the host time of the refinement from a profiled run;
+  6. run the round's "Done" scenario through the code of
+     scripts/eval_flagship_torch.py (gl_slam_tpu_torch.train.evals): 120
+     frames of the held-out flagship sequence (seed 101, forward_turn),
+     pair head, window BA every 8 frames and loop closing on (keyframe-
+     database detection every 20 frames past 50), unprofiled, held to the
+     bounds of tests/test_flagship_e2e.py, 0 recoveries, the detections
+     the cadence implies and the launch counts the path implies.
+Phase 2 also holds attention and the assignment at the loop detector's
+shapes (2 candidates' 256-row keyframe databases against the 2048-keypoint
+frame, random database masks, one empty database).
 The line before the last is the `kernels` JSON; the last line is the
 device JSON. Details go to chiprun_out/chip_smoke.json.
 """
@@ -62,6 +72,13 @@ N_KPTS, M_REOBS, HEADS, HEAD_DIM, FEAT_DIM = 2048, 1024, 2, 128, 256
 # csrc/assignment.cu launches two kernels per call (the lse pass and the
 # argmax pass); attention.cu and nms.cu launch one.
 ASSIGN_KERNELS_PER_CALL = 2
+# The loop detector: `loop_candidates` keyframe databases of
+# `loop_db_keypoints` rows matched against the frame's N keypoints in one
+# matcher call; the sets differ in size, so each of the 9 layers makes 4
+# attention calls (self at each size, cross both ways).
+LOOP_CANDS, LOOP_DB = 2, 256
+ATTN_PER_DETECTION = 9 * 4
+DONE_FRAMES = 120                 # the flagship eval's sequence (phase 6)
 
 
 def expected_launches(n_chunks):
@@ -163,6 +180,20 @@ def attention_cases(torch, gen, dev):
     v = (v.float() + 1.0).to(torch.bfloat16)
     cases.append((f"reobs {HEADS}x{M}x{N} all keys masked", q, k, v,
                   torch.zeros(N, dtype=torch.bool, device=dev)))
+    # The loop detector: 2 candidates x 2 heads, database (256) and frame
+    # (2048) sides. Database keys carry random masks and the second
+    # candidate's database is empty (its v offset by 1 as above).
+    Q, B = LOOP_CANDS, LOOP_DB
+    for nq, nk in ((B, B), (N, N), (B, N), (N, B)):
+        q, k, v = needle_qkv(torch, rnd, (Q,), nq, nk)
+        if nk == B:
+            mask = torch.rand(Q, nk, generator=gen, device=dev) < 0.7
+            mask[1] = False
+            v[1] = (v[1].float() + 1.0).to(torch.bfloat16)
+        else:
+            mask = torch.rand(Q, nk, generator=gen, device=dev) < 0.9
+        cases.append((f"detect {Q}x{HEADS}x{nq}x{nk}", q, k, v,
+                      mask.contiguous()))
     return cases
 
 
@@ -243,7 +274,9 @@ def assignment_cases(torch, gen, dev):
     for name, B, N, M in (
             (f"prologue {CHUNK}x{N_KPTS}x{N_KPTS}", CHUNK, N_KPTS, N_KPTS),
             (f"bootstrap 1x{N_KPTS}x{N_KPTS}", 1, N_KPTS, N_KPTS),
-            (f"reobs 1x{M_REOBS}x{N_KPTS}", 1, M_REOBS, N_KPTS)):
+            (f"reobs 1x{M_REOBS}x{N_KPTS}", 1, M_REOBS, N_KPTS),
+            (f"detect {LOOP_CANDS}x{LOOP_DB}x{N_KPTS}", LOOP_CANDS, LOOP_DB,
+             N_KPTS)):
         f0 = (rnd(B, N, FEAT_DIM) / 4).to(torch.bfloat16)
         f1 = (rnd(B, M, FEAT_DIM) / 4).to(torch.bfloat16)
         z0, z1 = rnd(B, N), rnd(B, M)
@@ -252,16 +285,19 @@ def assignment_cases(torch, gen, dev):
         m1[0, 7] = False                          # fully masked column
         m0[0, 3] = False                          # fully masked row
         # Row 40 strongly prefers column 100 and column 60 row 150; the
-        # duplicates (column 200, row 300, with equal matchability) give
-        # equal objectives, which must resolve to the smaller index.
+        # duplicates (column 200, row 300 or 200, with equal matchability)
+        # give equal objectives, which must resolve to the smaller index.
+        dup = 300 if N > 300 else 200
         f1[0, 100] = f0[0, 40] * 4
         f0[0, 150] = f1[0, 60] * 4
         z1[0, 100] = z0[0, 150] = 5.0
         f1[0, 200], z1[0, 200] = f1[0, 100], z1[0, 100]
-        f0[0, 300], z0[0, 300] = f0[0, 150], z0[0, 150]
-        m0[0, [40, 150, 300]] = True
+        f0[0, dup], z0[0, dup] = f0[0, 150], z0[0, 150]
+        m0[0, [40, 150, dup]] = True
         m1[0, [60, 100, 200]] = True
-        if B > 1:
+        if name.startswith("detect"):
+            m0[-1, :] = False                     # an empty database
+        elif B > 1:
             m1[-1, :] = False                     # fully masked columns
             m1[-1, 9] = True
         cases.append((name, f0, f1, z0, z1, m0, m1))
@@ -760,6 +796,80 @@ def run_pair(torch, dev, details, cfg, sp, lg, scene, stack):
         num_matches=diag["outputs"].num_matches.tolist())
 
 
+def run_done(torch, dev, details):
+    """The round's Done scenario, counted and unprofiled: the flagship eval
+    (evals.flagship_eval, the code of scripts/eval_flagship_torch.py)
+    with loop closing on, held to the bounds of the flagship eval's test,
+    the detection cadence and the launch counts the path implies: the
+    tracker's, plus per detection 36 attention calls and one assignment
+    call at the detector's shapes."""
+    import numpy as np
+
+    from gl_slam_tpu_torch.config import flagship_config
+    from gl_slam_tpu_torch.ops import _build
+    from gl_slam_tpu_torch.train import evals
+
+    cfg = flagship_config()
+    check(cfg.runtime.loop_closing, "flagship_config() has loop closing off")
+    n_chunks = (DONE_FRAMES - 2) // CHUNK
+    checks = evals.loop_checks_implied(cfg, DONE_FRAMES, CHUNK)
+    want = expected_launches(n_chunks)
+    want["attention"] += ATTN_PER_DETECTION * len(checks)
+    want["assignment"] += ASSIGN_KERNELS_PER_CALL * len(checks)
+    diag = {}
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    rep = evals.flagship_eval(os.path.join(ROOT, "checkpoints"),
+                              frames=DONE_FRAMES, device=dev, warmup=False,
+                              diag_out=diag)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    wall = time.perf_counter() - t0
+    print(f"  frames {rep['num_frames']} keyframes {rep['num_keyframes']} "
+          f"rejected {rep['num_rejected_frames']} mean matches "
+          f"{rep['mean_matches']} ATE {rep['ate_rmse_m']} m "
+          f"({rep['ate_pct_of_trajectory']} % of the trajectory) BA runs "
+          f"{rep['num_ba_runs']} recoveries {rep['num_recoveries']} loop "
+          f"checks at frames {rep['loop_checks']} (implied {checks}) "
+          f"closures {rep['loop_closures']} tracked fps "
+          f"{rep['fps_same_run']} launches {launches} (expected {want}); "
+          f"render {rep['render_s']} s, phase {wall:.1f} s", flush=True)
+    for c in diag["loop_checks"]:
+        d = c["det"]
+        print(f"  detection at frame {c['frames']}: host {c['host_ms']:.1f} "
+              f"ms to issue; ok {bool(d.ok)}, candidates "
+              f"{int(d.region_votes)} of {int(d.n_vis)} retrieved, "
+              f"{int(d.n_good)} matches, {int(d.num_inliers)} PnP inliers",
+              flush=True)
+    for e in rep["loop_events"]:
+        print(f"  closure: {e}", flush=True)
+    o = diag["outputs"]
+    check(np.isfinite(diag["R"]).all() and np.isfinite(diag["t"]).all()
+          and np.isfinite(o.R).all() and np.isfinite(o.t).all(),
+          "Done run: non-finite pose")
+    check(rep["num_frames"] >= 100, f"Done run: {rep['num_frames']} frames")
+    check(rep["ate_pct_of_trajectory"] <= 0.5,
+          f"Done run: ATE {rep['ate_pct_of_trajectory']} % of the "
+          f"trajectory > 0.5 %")
+    check(rep["num_keyframes"] >= 0.97 * rep["num_frames"],
+          f"Done run: {rep['num_keyframes']} keyframes of "
+          f"{rep['num_frames']} frames")
+    check(rep["mean_matches"] > 300,
+          f"Done run: mean matches {rep['mean_matches']} <= 300")
+    check(rep["num_ba_runs"] >= 5 and rep["num_ba_runs"] == n_chunks,
+          f"Done run: {rep['num_ba_runs']} BA runs, expected {n_chunks}")
+    check(rep["num_recoveries"] == 0,
+          f"Done run: {rep['num_recoveries']} recoveries")
+    check(rep["loop_checks"] == checks,
+          f"Done run: loop checks {rep['loop_checks']} != {checks}")
+    check(rep["loop_closures"] == len(rep["loop_events"]),
+          "Done run: closures and loop events disagree")
+    check(launches == want, f"Done run: launch counts {launches} != {want}")
+    details["done"] = dict(report=rep, launches=launches,
+                           expected_launches=want, phase_wall_s=wall,
+                           num_matches=o.num_matches.tolist())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -817,6 +927,10 @@ def main() -> int:
               f"bootstrap + 2 chunks [{time.perf_counter() - t_start:.0f} s]",
               flush=True)
         run_pair(torch, dev, details, *slice_args)
+        print(f"phase 6: the Done scenario, {DONE_FRAMES} frames, pair head, "
+              f"BA and loop closing [{time.perf_counter() - t_start:.0f} s]",
+              flush=True)
+        run_done(torch, dev, details)
         details["wall_s"] = time.perf_counter() - t_start
         print(f"all phases passed [{details['wall_s']:.0f} s]", flush=True)
 

@@ -4,10 +4,12 @@ Counterpart of gl_slam_tpu/geometry/se3.py (the functions the chunked
 tracker and its backend reach). A camera pose (R, t) maps world points to
 the camera frame, x_cam = R @ x_world + t. Functions take (..., 3) /
 (..., 3, 3) batches where the JAX version is vmapped (`exp_so3` is also the
-JAX `exp_so3_batched`).
+JAX `exp_so3_batched`, `log_so3` the JAX `log_so3_batched`).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -78,3 +80,51 @@ def apply_to_points(R, t, pts):
 def chain_relative(R_prev, t_prev, R_rel, t_rel):
     """T_cur = T_rel o T_prev (world->camera poses)."""
     return R_rel @ R_prev, R_rel @ t_prev + t_rel
+
+
+def log_so3(R: torch.Tensor) -> torch.Tensor:
+    """Rotation (..., 3, 3) -> axis-angle (..., 3) (inverse Rodrigues).
+
+    Three regimes, selected without branches: Taylor near theta = 0, the
+    antisymmetric-part formula in the middle, and the theta ~ pi branch,
+    where the antisymmetric part vanishes and the axis comes from the
+    dominant diagonal of (R + I) / 2 with its sign from that part. The
+    arccos input stays inside (-1, 1): its derivative is infinite at the
+    ends, which would put NaNs into forward-mode Jacobians through
+    pose-graph residuals at zero rotation."""
+    diag = torch.diagonal(R, dim1=-2, dim2=-1)
+    trace = torch.clamp(diag.sum(-1), -1.0, 3.0)
+    cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0 + 1e-7, 1.0 - 1e-7)
+    theta = torch.arccos(cos_theta)
+    v = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                     R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    scale = torch.where(theta < 1e-5, 0.5 + theta * theta / 12.0,
+                        theta / (2.0 * torch.sin(theta) + _EPS))
+    w_mid = scale[..., None] * v
+
+    # theta ~ pi: R ~ 2 n n^T - I, so n_i^2 = (R_ii + 1) / 2; take the axis
+    # candidate anchored at the dominant diagonal entry.
+    nsq = torch.clamp((diag + 1.0) * 0.5, 0.0, 1.0)
+    anchor = torch.sqrt(torch.clamp_min(nsq, 1e-12))
+    sym = 0.5 * (R + R.transpose(-1, -2))
+    eye = torch.eye(3, dtype=torch.bool, device=R.device)
+    cand = torch.where(eye, anchor[..., :, None],
+                       sym / (2.0 * anchor[..., :, None]))
+    pick = torch.argmax(nsq, dim=-1)
+    n = torch.take_along_dim(cand, pick[..., None, None].expand(
+        *pick.shape, 1, 3), dim=-2)[..., 0, :]
+    n = n / torch.clamp_min(torch.linalg.vector_norm(n, dim=-1,
+                                                     keepdim=True), _EPS)
+    # at exactly pi the sign is ambiguous (w and -w are the same rotation)
+    sign = torch.where((n * v).sum(-1) >= 0.0, 1.0, -1.0)
+    w_pi = (theta * sign)[..., None] * n
+    near_pi = theta > math.pi - 1e-2
+    return torch.where(near_pi[..., None], w_pi, w_mid)
+
+
+def rotation_angle_deg(R: torch.Tensor) -> torch.Tensor:
+    """Rotation magnitude (...,) in degrees of (..., 3, 3)."""
+    tr = torch.diagonal(R, dim1=-2, dim2=-1).sum(-1)
+    return torch.rad2deg(torch.arccos(torch.clamp((tr - 1.0) * 0.5,
+                                                  -1.0, 1.0)))

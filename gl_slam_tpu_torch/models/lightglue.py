@@ -212,8 +212,9 @@ def assignment(sim, z0, z1, m0, m1, threshold: float) -> MatchOutput:
 
 def normalize_keypoints(kpts: torch.Tensor, height: int,
                         width: int) -> torch.Tensor:
-    """Pixel -> [-1, 1]: shift by half-size, scale by half the larger side."""
-    shift = torch.tensor([width / 2.0, height / 2.0], dtype=torch.float32,
-                         device=kpts.device)
+    """Pixel -> [-1, 1]: shift by half-size, scale by half the larger side.
+    The shift enters as Python scalars: a shift tensor built on the host
+    would be a pageable copy to the card, which waits for the stream."""
     scale = max(width, height) / 2.0
-    return (kpts - shift) / scale
+    return torch.stack([(kpts[..., 0] - width / 2.0) / scale,
+                        (kpts[..., 1] - height / 2.0) / scale], dim=-1)

@@ -3,25 +3,40 @@
 Counterpart of gl_slam_tpu/slam/chunk_driver.py: bootstrap from two images
 through the same extractor and matcher the chunks use, then one chunk of T
 frames per `track_chunk` call, a sliding-window BA pass (slam/ba.py) with
-slot recycling every `ba_every` frames, and the NaN health check with
-rollback at that cadence. The loop-closure hook of the JAX version is not
-ported yet: asking for it raises instead of silently skipping it.
+slot recycling every `ba_every` frames, the NaN health check with rollback
+at that cadence, and the periodic loop-closure hook (slam/loopclose.py).
 
-Nothing here reads the device back while tracking. The BA window is derived
-from `num_kf` on the device. The health check works with a one-period lag:
-each BA trigger starts a non-blocking copy of `t_cur` into pinned host
-memory, marked by a CUDA event, and consumes the copy started at the
-previous trigger (waiting on that event only, not on the stream). A
-non-finite pose rolls the state back to the last snapshot that was verified
-finite, up to two BA periods old. Snapshots alias the live state (all of
-it, the carried sub-pixel patches included): state updates never write in
-place (slam/state.py).
+Nothing here reads the device back while tracking, apart from a loop
+closure that is applied. The BA window is derived from `num_kf` on the
+device. The health check works with a one-period lag: each BA trigger
+starts a non-blocking copy of `t_cur` into pinned host memory, marked by a
+CUDA event, and consumes the copy started at the previous trigger (waiting
+on that event only, not on the stream). A non-finite pose rolls the state
+back to the last snapshot that was verified finite, up to two BA periods
+old. Snapshots alias the live state (all of it, the carried sub-pixel
+patches included): state updates never write in place (slam/state.py).
+
+Loop closing (`cfg.runtime.loop_closing`): once more than `loop_min_gap`
+frames are tracked, every `loop_check_interval` frames (checked after each
+chunk) the keyframe-database detector runs on the carried last-accepted
+frame features (`prev_*`: no extra extraction) through the tracker's own
+learned matcher. Its verdict is read one interval late, through a pinned
+copy and a CUDA event as in the health check; a verified detection is closed
+on the host (`loopclose.close_loop`, pose graph over the last
+`pose_graph_window` keyframes, the loop edge on the keyframe that was
+newest when the detection ran).
 
 Randomness: the essential RANSAC of the bootstrap and of every frame takes
 (hypotheses, 8) uniform draws, in the order bootstrap, then frame by frame.
 By default they come from a `torch.Generator` seeded with `seed`; `draws`,
 a callable n -> (n, hypotheses, 8) tensor, replaces that source (a test
-feeds the JAX reference's own draws through it).
+feeds the JAX reference's own draws through it). Each loop detection takes
+its PnP Gumbel draws (loop_candidates, pnp_hypotheses, database rows) from
+a generator of its own, seeded with the frame count at the check, as the
+JAX version keys it with `PRNGKey(frames)`; `loop_draws`, a callable
+frames -> that tensor, replaces it. Detection never touches the tracker's
+draws or state, so a run in which no closure fires equals the run with
+loop closing off bit for bit.
 """
 
 from __future__ import annotations
@@ -37,7 +52,7 @@ from torch.profiler import record_function
 from ..config import SLAMConfig
 from ..device import resolve_device
 from . import ba as ba_mod
-from . import frontend, fused
+from . import frontend, fused, loopclose
 from .state import recycle_free_slots
 
 
@@ -55,17 +70,18 @@ class ChunkedPipeline:
     reprojection before and after, live LM iterations: device scalars, read
     by the caller), the host time to issue the pass (ms) and, on a card, a
     pair of CUDA events around it.
+
+    With loop closing on, `loop_checks` holds one entry per detection: the
+    frame count at the check, the `LoopDetection` (device tensors) and the
+    host time to issue it (ms); `loop_events` one per applied closure.
     """
 
     def __init__(self, cfg: SLAMConfig, K, sp_net, lg_net, chunk: int = 8,
                  ba_every: int = 8, seed: int = 0, enable_ba: bool = True,
                  device=None,
                  draws: Optional[Callable[[int], torch.Tensor]] = None,
-                 ba_diag: bool = False, subpix_head=None):
-        if cfg.runtime.loop_closing:
-            raise NotImplementedError(
-                "loop closing (slam/loopclose.py) is not ported yet; see "
-                "ROADMAP.md - use RuntimeConfig(loop_closing=False)")
+                 ba_diag: bool = False, subpix_head=None,
+                 loop_draws: Optional[Callable[[int], torch.Tensor]] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.K = torch.as_tensor(np.asarray(K), dtype=torch.float32,
@@ -96,6 +112,15 @@ class ChunkedPipeline:
         self._ba_diag = ba_diag
         self.ba_log: List[tuple] = []   # (BADiag, host ms, CUDA events)
         self._last_ba_diag = None
+        self._loop_draws = loop_draws
+        self._frames_at_loop_check = 0
+        # (pinned host copy of det.ok, its CUDA event or None, detection)
+        self._pending_loop = None
+        self.num_loop_closures = 0
+        self.loop_checks: List[dict] = []
+        self.loop_events: List[dict] = []
+        self._detect_fn = self._build_detect_fn() \
+            if cfg.runtime.loop_closing else None
 
     def draw(self, n: int) -> torch.Tensor:
         """The next n RANSAC draw sets, (n, hypotheses, 8) in [0, 1)."""
@@ -200,6 +225,7 @@ class ChunkedPipeline:
                 self.state = self._ba_fn(self.state)
             self.num_ba_runs += 1
             self._health_check()
+        self._maybe_loop_close()
         return outs
 
     def _timed_ba_pass(self):
@@ -247,6 +273,82 @@ class ChunkedPipeline:
         else:
             host_t, event = snap.t_cur, None
         self._pending_health = (host_t, event, snap)
+
+    # -- loop closing ------------------------------------------------------
+    def _build_detect_fn(self):
+        """The keyframe-database detector on a tracking state: the
+        tracker's learned matcher (`fused.build_matcher`: LightGlue and the
+        fused assignment, through the kernels on the card) over the carried
+        `prev_kpts` / `prev_desc` / `prev_valid`."""
+        cfg, K, match_fn = self.cfg, self.K, self.match_fn
+
+        def detect_fn(st: frontend.TrackState, gumbel: torch.Tensor):
+            f = frontend.FrameFeatures(st.prev_kpts, st.prev_desc,
+                                       st.prev_valid, None)
+            return loopclose.detect_loop(
+                cfg, K, st.map, f, gumbel, min_gap=cfg.runtime.loop_min_gap,
+                matcher=match_fn, R_cur=st.R_cur, t_cur=st.t_cur)
+
+        return detect_fn
+
+    def _loop_gumbel(self, frames: int) -> torch.Tensor:
+        """The PnP draws of the detection at frame count `frames`."""
+        if self._loop_draws is not None:
+            g = torch.as_tensor(self._loop_draws(frames), dtype=torch.float32)
+            return g.to(self.device)
+        cfg = self.cfg
+        shape = (cfg.runtime.loop_candidates, cfg.geometry.pnp_hypotheses,
+                 self.state.map.kf_db_idx.shape[1])
+        gen = torch.Generator(device=self.device).manual_seed(frames)
+        return loopclose.pnp_draws(gen, shape, device=self.device)
+
+    def _dispatch_detect(self):
+        """Issue one detection and start the copy of its verdict."""
+        t0 = time.perf_counter()
+        det = self._detect_fn(self.state, self._loop_gumbel(self._frames))
+        if det.ok.is_cuda:
+            host_ok = torch.empty((), dtype=torch.bool, pin_memory=True)
+            host_ok.copy_(det.ok, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(det.ok.device))
+        else:
+            host_ok, event = det.ok, None
+        self.loop_checks.append(dict(
+            frames=self._frames, det=det,
+            host_ms=(time.perf_counter() - t0) * 1e3))
+        self._pending_loop = (host_ok, event, det)
+
+    def _maybe_loop_close(self):
+        """Loop-closure cadence, checked after each chunk: past
+        `loop_min_gap` frames, once every `loop_check_interval` frames,
+        consume the previous check's verdict (closing the loop it found)
+        and issue the next detection."""
+        rt = self.cfg.runtime
+        if not rt.loop_closing or self.state is None:
+            return
+        if self._frames <= rt.loop_min_gap:
+            return
+        if self._frames - self._frames_at_loop_check < rt.loop_check_interval:
+            return
+        self._frames_at_loop_check = self._frames
+        if self._pending_loop is not None:
+            host_ok, event, det = self._pending_loop
+            self._pending_loop = None
+            if event is not None:
+                event.synchronize()    # the work up to that check only
+            if bool(host_ok):
+                t0 = time.perf_counter()
+                self.state = loopclose.close_loop(
+                    self.cfg, self.K, self.state, det, rt.pose_graph_window,
+                    target_kf=int(det.cur_kf) - 1)
+                self.num_loop_closures += 1
+                self.loop_events.append(dict(
+                    applied_at_frame=self._frames,
+                    detected_at_kf=int(det.cur_kf) - 1,
+                    loop_kf=int(det.loop_kf),
+                    pnp_inliers=int(det.num_inliers),
+                    host_ms=(time.perf_counter() - t0) * 1e3))
+        self._dispatch_detect()
 
     def finish(self):
         """Wait for the device to finish all enqueued work."""

@@ -3,8 +3,8 @@
 Counterpart of the inference half of gl_slam_tpu/train/e2e.py: build the
 SuperPoint and LightGlue networks and the pair sub-pixel head at the
 committed checkpoints' shapes, load their weights, and track a rendered
-sequence through the chunked pipeline with its periodic window BA.
-Training and the single-view sub-pixel head are not ported.
+sequence through the chunked pipeline with its periodic window BA and loop
+closing. Training and the single-view sub-pixel head are not ported.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ class E2EResult(NamedTuple):
     mean_pose_cost: float
     total_new_points: int
     num_ba_runs: int = 0
+    loop_closures: int = 0
 
 
 def _load_frontend(ckpt_dir, tag, D, channels, lg_shape, device, dtype):
@@ -116,26 +117,32 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
                     draws: Optional[Callable[[int], torch.Tensor]] = None,
                     stack: Optional[np.ndarray] = None,
                     diag_out: Optional[dict] = None,
-                    ba_diag: bool = False, subpix=None) -> E2EResult:
+                    ba_diag: bool = False, subpix=None,
+                    domain: str = "clean") -> E2EResult:
     """Bootstrap on frames 0-1, then track whole chunks of `chunk` frames of
     `scene`, with a window BA pass every `ba_every` frames (rounded to whole
-    chunks) when `cfg.runtime.run_full_ba` is on (loop closing must be off
-    in `cfg`); ATE-RMSE of the keyframe camera centres against ground
-    truth. `stack`: pre-rendered frames (else rendered here, outside the
-    timed region). fps counts the tracked frames after the bootstrap over
-    the host wall time up to the final device synchronisation. `diag_out`
-    receives the per-frame outputs, the trajectory, the final tracking
-    state, the recovery count and the state's size in bytes. `ba_diag` (off
-    by default: it adds two reprojection passes to every BA) also puts
-    there, per BA pass, `ba_reproj` (the window's mean reprojection error
-    in px before and after), `ba_lm_iters` (LM iterations before the carry
-    froze) and `ba_ms` (host time to issue the pass, and time between two
-    CUDA events around it or None on the CPU). `subpix`: an optional PairSubpixHead
+    chunks) when `cfg.runtime.run_full_ba` is on, and the loop-closure
+    checks when `cfg.runtime.loop_closing` is on; ATE-RMSE of the keyframe
+    camera centres against ground truth. `stack`: pre-rendered frames
+    (else rendered here in `domain`, outside the timed region). `draws`
+    replaces the pipeline's RANSAC draws (ChunkedPipeline). fps counts the
+    tracked frames after the bootstrap over the host wall time up to the
+    final device synchronisation. `diag_out` receives the per-frame
+    outputs, the trajectory, the final tracking state, the recovery count,
+    the state's size in bytes, `loop_events` (one dict per applied
+    closure) and `loop_checks` (per detection: the frame count, the
+    LoopDetection, the host ms to issue it). `ba_diag` (off by default: it
+    adds two reprojection passes to every BA) also puts there, per BA
+    pass, `ba_reproj` (the window's mean reprojection error in px before
+    and after), `ba_lm_iters` (LM iterations before the carry froze) and
+    `ba_ms` (host time to issue the pass, and time between two CUDA events
+    around it or None on the CPU). `subpix`: an optional PairSubpixHead
     (load_*_subpix) that refines the matched keypoints in every chunk; None
     keeps the centroid refinement."""
     dev = resolve_device(device)
     if stack is None:
-        stack = render_stack(scene, n_frames, cfg.frontend.max_keypoints)
+        stack = render_stack(scene, n_frames, cfg.frontend.max_keypoints,
+                             domain=domain)
     pipe = ChunkedPipeline(cfg, scene.K, sp, lg, chunk=chunk,
                            ba_every=ba_every, seed=seed, device=dev,
                            draws=draws,
@@ -165,6 +172,7 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
         diag_out.update(
             outputs=o, R=R_est, t=t_est, frame_idx=fidx, state=pipe.state,
             num_recoveries=pipe.num_recoveries,
+            loop_events=pipe.loop_events, loop_checks=pipe.loop_checks,
             state_bytes=sum(x.numel() * x.element_size() for x in
                             (*pipe.state.map, *pipe.state[1:])
                             if x is not None))
@@ -184,4 +192,5 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
         mean_inliers=float(o.num_inliers.mean()),
         mean_pose_cost=float(o.pose_cost[oks].mean()) if oks.any() else 0.0,
         total_new_points=int(o.num_new_points.sum()),
-        num_ba_runs=pipe.num_ba_runs)
+        num_ba_runs=pipe.num_ba_runs,
+        loop_closures=pipe.num_loop_closures)

@@ -30,12 +30,16 @@ def cuda_device():
 # (lead, Nq, Nk, dh, empty first split): ragged shapes; the four
 # re-observation shapes, which the kernel splits over 2-4 CTAs; a mask that
 # empties the first split with Nk not a multiple of S x the key tile;
-# Nq < 64 split 8 ways.
+# Nq < 64 split 8 ways; the loop detector's four shapes (2 candidates x 2
+# heads, a 256-row keyframe database against a 2048-keypoint frame), with
+# the first candidate's keys all masked.
 ATTN_CASES = [((3,), 100, 70, 128, False), ((), 64, 200, 64, False),
               ((2, 2), 17, 9, 32, False),
               ((), 1024, 1024, 128, False), ((), 2048, 2048, 128, False),
               ((), 1024, 2048, 128, False), ((), 2048, 1024, 128, False),
-              ((), 1024, 1000, 128, True), ((), 40, 900, 128, False)]
+              ((), 1024, 1000, 128, True), ((), 40, 900, 128, False),
+              ((2,), 256, 256, 128, False), ((2,), 2048, 2048, 128, False),
+              ((2,), 256, 2048, 128, False), ((2,), 2048, 256, 128, False)]
 
 
 @pytest.mark.parametrize("lead,Nq,Nk,dh,masked", ATTN_CASES)
@@ -120,6 +124,40 @@ def test_assignment_kernel_matches_plain(cuda_device, B, N, M, Df):
         for g_, r_ in zip(got, ref):
             assert torch.equal(g_[-1], r_[-1])
         assert not bool(got[0][-1].any()) and not bool(got[3][-1].any())
+
+
+def test_assignment_kernel_at_the_detector_shape(cuda_device):
+    """2 candidates x 256 database rows against 2048 keypoints: ragged
+    database masks, and a candidate whose database is empty (a keyframe
+    with no 3-D points, or a missing candidate) against a valid frame."""
+    arrs = _asg_inputs(np.random.default_rng(6), 2, 256, 2048, 256)
+    f0, f1, z0, z1, m0, m1 = (torch.from_numpy(a).to(cuda_device)
+                              for a in arrs)
+    m0[1] = False
+    f0, f1 = f0.to(torch.bfloat16), f1.to(torch.bfloat16)
+    c0 = torch.nn.functional.logsigmoid(z0)
+    c1 = torch.nn.functional.logsigmoid(z1)
+    got = t_asg.fused_reductions(f0, f1, c0, c1, m0, m1, 256 ** -0.5)
+    ref = t_asg.fused_reductions_plain(f0, f1, c0, c1, m0, m1, 256 ** -0.5)
+    for name, g_, r_ in zip(("nn0", "v0", "lse_r", "nn1", "v1", "lse_c"),
+                            got, ref):
+        if name.startswith("nn"):
+            assert float((g_[0] != r_[0]).float().mean()) < 0.01, name
+        else:
+            assert float((g_ - r_).abs().max()) <= 1e-3, name
+    # the empty database: every entry of that pair masked, as in the plain
+    # version (index 0, the starting carry)
+    for g_, r_ in zip(got, ref):
+        assert torch.equal(g_[1], r_[1])
+    # and the assignment through the kernel equals the plain one there: no
+    # database row matches (the detector reads matches0 only; matches1 may
+    # pair a frame column with a masked row, as in the plain version)
+    mo = t_asg.fused_assignment(f0, f1, z0, z1, m0, m1, 256 ** -0.5)
+    mp = t_asg.fused_assignment(*(x.cpu() for x in (f0, f1, z0, z1, m0,
+                                                     m1)), 256 ** -0.5)
+    assert not bool((mo.matches0[1] >= 0).any())
+    assert torch.equal(mo.matches0[1].cpu(), mp.matches0[1])
+    assert torch.equal(mo.matches1[1].cpu(), mp.matches1[1])
 
 
 @pytest.mark.parametrize("B,N,M", [(1, 1024, 2048), (8, 2048, 2048),
@@ -291,6 +329,131 @@ def test_pair_mode_run_on_the_card(cuda_device):
     assert res.mean_matches > 50 and res.ate_m < 1.0, res
     patches = diag["state"].prev_patches
     assert patches.is_cuda and patches.shape == (N, 7, 7)
+
+
+def _revisit(dev):
+    """A tiny tracked map (CPU, float32 networks), the features of frame 1
+    extracted again, and the loop detector on `dev`: (cfg, K, state,
+    frame-1 features, draws), all on `dev`."""
+    import dataclasses
+    import os
+
+    from gl_slam_tpu_torch import config as t_cfg
+    from gl_slam_tpu_torch.io import synthetic
+    from gl_slam_tpu_torch.slam import fused, loopclose
+    from gl_slam_tpu_torch.slam import frontend
+    from gl_slam_tpu_torch.train import e2e
+
+    ckpt = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
+    H, W, N, D = 240, 320, 128, t_cfg.TINY_DESC_DIM
+    cfg = t_cfg.micro_config(H, W, N, D)
+    cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime,
+                                                  loop_closing=False))
+    scene = synthetic.make_scene(num_landmarks=900, num_frames=18, height=H,
+                                 width=W, desc_dim=D, seed=11)
+    stack = e2e.render_stack(scene, 18, N)
+    sp, lg = e2e.load_tiny_frontend(ckpt, device="cpu", dtype=torch.float32)
+    diag = {}
+    e2e.run_learned_e2e(sp, lg, scene, cfg, 18, chunk=8, ba_every=8,
+                        device="cpu", stack=stack, diag_out=diag)
+    kp, desc, valid = fused.build_extract_fn(cfg, sp)(
+        torch.from_numpy(stack[1:2]))[:3]
+    st = diag["state"]
+    st = type(st)(type(st.map)(*(x.to(dev) for x in st.map)),
+                  *(None if x is None else x.to(dev) for x in st[1:]))
+    f = frontend.FrameFeatures(kp[0].to(dev), desc[0].to(dev),
+                               valid[0].to(dev), None)
+    gen = torch.Generator().manual_seed(0)
+    g = loopclose.pnp_draws(gen, (cfg.runtime.loop_candidates,
+                                  cfg.geometry.pnp_hypotheses,
+                                  st.map.kf_db_idx.shape[1])).to(dev)
+    K = torch.as_tensor(scene.K, dtype=torch.float32, device=dev)
+    return cfg, K, st, f, g, scene
+
+
+def test_detect_and_close_on_the_card_like_the_cpu(cuda_device):
+    """`detect_loop_db` (the learned matcher in bf16: attention and
+    assignment kernels on the card, their plain versions on the CPU) on a
+    revisit of frame 1 by its own features, then `close_loop` of that
+    detection onto the newest keyframe (a 16 m correction along the
+    chain), on the card against the same calls on the CPU."""
+    from gl_slam_tpu_torch.slam import fused, loopclose
+    from gl_slam_tpu_torch.train import e2e
+    import os
+
+    ckpt = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        cfg, K, st, f, g, scene = _revisit(dev)
+        _, lg = e2e.load_tiny_frontend(ckpt, device=dev)      # bf16
+        match = fused.build_matcher(cfg, lg)
+        R1 = torch.as_tensor(scene.poses_R[1], dtype=torch.float32,
+                             device=dev)
+        t1 = torch.as_tensor(scene.poses_t[1] + 0.3, dtype=torch.float32,
+                             device=dev)
+        launches = dict(_build.LAUNCHES)
+        det = loopclose.detect_loop_db(cfg, K, st.map, f, g, min_gap=5,
+                                       min_inliers=30, matcher=match,
+                                       R_cur=R1, t_cur=t1)
+        if dev.type == "cuda":
+            assert _build.LAUNCHES["attention"] > launches["attention"]
+            assert _build.LAUNCHES["assignment"] \
+                == launches["assignment"] + 2
+        out.append((cfg, K, st, det))
+    (cfg, Kc, stc, dc), (_, Kg, stg, dg) = out
+    assert bool(dc.ok) and bool(dg.ok), (int(dc.num_inliers),
+                                         int(dg.num_inliers))
+    assert int(dg.loop_kf) == int(dc.loop_kf) == 1
+    # bf16 kernels against their plain versions: a few matches may flip
+    assert abs(int(dg.num_inliers) - int(dc.num_inliers)) <= 5
+    np.testing.assert_allclose(dg.R.cpu().numpy(), dc.R.numpy(), atol=2e-3)
+    np.testing.assert_allclose(dg.t.cpu().numpy(), dc.t.numpy(), atol=5e-2)
+    # the closure of the CPU's detection on both devices: the same graph
+    # and warm start, 8 dense f32 GN steps in other summation orders
+    last = int(stc.map.num_kf) - 1
+    sc = loopclose.close_loop(cfg, Kc, stc, dc, max_graph_kf=12,
+                              target_kf=last)
+    sg = loopclose.close_loop(cfg, Kg, stg, type(dc)(*(
+        None if x is None else x.to(cuda_device) for x in dc)),
+        max_graph_kf=12, target_kf=last)
+    np.testing.assert_allclose(sg.map.kf_R.cpu().numpy(),
+                               sc.map.kf_R.numpy(), atol=1e-3)
+    np.testing.assert_allclose(sg.map.kf_t.cpu().numpy(),
+                               sc.map.kf_t.numpy(), atol=1e-2)
+    assert torch.isfinite(sg.map.pts_xyz).all()
+    assert float((sc.map.kf_t - stc.map.kf_t).abs().max()) > 1.0
+
+
+def test_a_loop_check_does_not_wait_for_the_card(cuda_device):
+    """One loop check of the driver (the PnP draws, the detector through
+    the kernels, the pinned copy of its verdict) issues no operation that
+    makes the host wait for the stream: PyTorch's sync debug mode would
+    raise on one."""
+    import dataclasses
+    import os
+
+    from gl_slam_tpu_torch.slam.chunk_driver import ChunkedPipeline
+    from gl_slam_tpu_torch.train import e2e
+
+    cfg, K, st, _, _, _ = _revisit(cuda_device)
+    cfg = cfg.replace(runtime=dataclasses.replace(
+        cfg.runtime, loop_closing=True, loop_min_gap=5))
+    ckpt = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
+    sp, lg = e2e.load_tiny_frontend(ckpt, device=cuda_device)
+    pipe = ChunkedPipeline(cfg, K.cpu().numpy(), sp, lg, device=cuda_device)
+    pipe.bootstrap_from_state(st, num_frames=18)
+    pipe._dispatch_detect()                 # first call: kernels loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipe._dispatch_detect()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host_ok, event, det = pipe._pending_loop
+    assert host_ok.is_pinned() and event is not None
+    event.synchronize()
+    assert bool(host_ok) == bool(det.ok.cpu())
+    assert [c["frames"] for c in pipe.loop_checks] == [18, 18]
 
 
 def test_kernels_reject_what_they_do_not_take(cuda_device):

@@ -169,3 +169,25 @@ def test_bootstrap_from_state_continues_a_run(frontend, scene):
     R, t, fidx = pipe.trajectory()
     assert list(fidx) == list(range(12))
     assert np.isfinite(R).all() and np.isfinite(t).all()
+
+
+def test_run_learned_e2e_renders_in_the_given_domain(frontend, scene,
+                                                     monkeypatch):
+    """`domain` reaches the renderer when no stack is given (the eval
+    scripts' `--domain`)."""
+    sp, lg = frontend
+    seen = []
+    render = e2e.render_stack
+
+    def spy(scene_, n, max_keypoints, domain="clean"):
+        seen.append(domain)
+        return render(scene_, n, max_keypoints, domain=domain)
+
+    monkeypatch.setattr(e2e, "render_stack", spy)
+    cfg = _cfg()
+    cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime,
+                                                  run_full_ba=False))
+    res = e2e.run_learned_e2e(sp, lg, scene, cfg, 3, chunk=1, device="cpu",
+                              domain="hard")
+    assert seen == ["hard"]
+    assert res.num_frames == 3 and np.isfinite(res.ate_m)

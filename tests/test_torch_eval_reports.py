@@ -1,0 +1,44 @@
+"""Bounds on the port's committed evaluation reports, each written on the
+card by its script; a test skips while its report is absent.
+
+  * FLAGSHIP_EVAL_TORCH.json (scripts/eval_flagship_torch.py): the bounds
+    of tests/test_flagship_e2e.py::test_flagship_eval_report_bounds, at
+    least 100 frames, from an NVIDIA card;
+  * LOOPCLOSE_EVAL_TORCH.json (scripts/eval_loopclose_torch.py): the
+    bounds of tests/test_loopclose.py::test_loopclose_eval_bounds.
+"""
+
+import json
+import os
+
+import pytest
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+
+def _report(name, script):
+    path = os.path.join(ROOT, name)
+    if not os.path.exists(path):
+        pytest.skip(f"no committed {name} (run scripts/{script} on the "
+                    f"card)")
+    with open(path) as f:
+        return json.load(f)
+
+
+def test_flagship_eval_torch_report_bounds():
+    rep = _report("FLAGSHIP_EVAL_TORCH.json", "eval_flagship_torch.py")
+    assert rep["device"].startswith("NVIDIA"), rep["device"]
+    assert rep["num_frames"] >= 100, rep
+    assert rep["ate_pct_of_trajectory"] <= 0.5, rep
+    assert rep["num_keyframes"] >= 0.97 * rep["num_frames"], rep
+    assert rep["mean_matches"] > 300, rep
+    assert rep["num_ba_runs"] >= 5, rep
+
+
+def test_loopclose_eval_torch_report_bounds():
+    rep = _report("LOOPCLOSE_EVAL_TORCH.json", "eval_loopclose_torch.py")
+    assert rep["device"].startswith("NVIDIA"), rep["device"]
+    assert rep["loop_off"]["frames"] >= 300, rep
+    assert rep["loop_on"]["loop_closures"] >= 1, rep
+    assert rep["loop_off"]["loop_closures"] == 0, rep
+    assert rep["loop_on"]["ate_rmse_m"] < rep["loop_off"]["ate_rmse_m"], rep

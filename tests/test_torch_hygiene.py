@@ -1,8 +1,9 @@
 """The port stands alone and runs on the card unless told otherwise.
 
-gl_slam_tpu_torch/ and chip_smoke.py must import no JAX, no Flax and
-nothing of the JAX package (the card's machine has neither), and the
-port's entry points must refuse to fall back to the CPU silently.
+gl_slam_tpu_torch/, chip_smoke.py and the port's scripts
+(scripts/*_torch.py) must import no JAX, no Flax and nothing of the JAX
+package (the card's machine has neither), and the port's entry points
+must refuse to fall back to the CPU silently.
 """
 
 import ast
@@ -19,6 +20,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gl_slam_tpu")
 
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
+    scripts = os.path.join(ROOT, "scripts")
+    files += [os.path.join(scripts, n) for n in sorted(os.listdir(scripts))
+              if n.endswith("_torch.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "gl_slam_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return files
@@ -45,6 +49,9 @@ def test_scan_sees_the_package():
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert "chip_smoke.py" in names
     assert os.path.join("gl_slam_tpu_torch", "slam", "fused.py") in names
+    assert os.path.join("gl_slam_tpu_torch", "slam", "loopclose.py") in names
+    for script in ("eval_flagship_torch.py", "eval_loopclose_torch.py"):
+        assert os.path.join("scripts", script) in names
 
 
 @pytest.fixture
@@ -72,3 +79,13 @@ def test_entry_points_default_to_the_card(no_cuda):
         ChunkedPipeline(cfg, np.eye(3), None, None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         e2e.run_learned_e2e(None, None, None, cfg, 4)
+
+
+def test_eval_entry_points_default_to_the_card(no_cuda):
+    from gl_slam_tpu_torch.train import evals
+    ckpt = os.path.join(ROOT, "checkpoints")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evals.flagship_eval(ckpt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evals.loopclose_ab(ckpt)
+    assert evals.device_line("cpu") == "cpu"

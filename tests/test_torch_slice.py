@@ -180,12 +180,18 @@ def test_ba_slice_counts_match_jax(both_runs_ba):
 
 
 def test_backend_stages_raise_instead_of_skipping():
+    """Every backend stage runs, loop closing included; what is not ported
+    (the single-view sub-pixel head) raises instead of being skipped."""
     cfg = t_cfg.micro_config(H, W, N, 64)
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        ChunkedPipeline(cfg, np.eye(3), None, None, device="cpu",
-                        enable_ba=False)
     sp, lg = t_e2e.load_tiny_frontend(CKPT, device="cpu",
                                       dtype=torch.float32)
+    pipe = ChunkedPipeline(cfg, np.eye(3), sp, lg, device="cpu",
+                           enable_ba=False)
+    assert cfg.runtime.loop_closing and pipe._detect_fn is not None
+    assert pipe.num_loop_closures == 0 and pipe.loop_checks == []
+    with pytest.raises(NotImplementedError, match="single-view"):
+        ChunkedPipeline(cfg, np.eye(3), sp, lg, device="cpu",
+                        subpix_head=object())
     pipe = ChunkedPipeline(_backend(cfg, ba=True), np.eye(3), sp, lg,
                            device="cpu")
     assert pipe.enable_ba and pipe.num_ba_runs == 0
