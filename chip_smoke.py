@@ -34,7 +34,15 @@ Phases (any failure exits non-zero and prints no result line):
      pair head, window BA every 8 frames and loop closing on (keyframe-
      database detection every 20 frames past 50), unprofiled, held to the
      bounds of tests/test_flagship_e2e.py, 0 recoveries, the detections
-     the cadence implies and the launch counts the path implies.
+     the cadence implies and the launch counts the path implies;
+  7. run the port's command line (gl_slam_tpu_torch.cli, the chunked
+     learned route) on a KITTI-layout directory it writes first (31 8-bit
+     PNG frames of a 31-frame scene like phase 3's, calib.txt, GT poses):
+     flagship preset, the single-view sub-pixel head, chunks of 8 with BA
+     every 8, so a bootstrap, three chunks and a tail of 5 real frames
+     padded to 8 and gated off; check the report (31 frames fed and
+     tracked, 3 rejected, ATE, matches over the real frames, BA count, 0
+     recoveries), the artifacts and the launch counts after the warm-up.
 Phase 2 also holds attention and the assignment at the loop detector's
 shapes (2 candidates' 256-row keyframe databases against the 2048-keypoint
 frame, random database masks, one empty database).
@@ -79,6 +87,10 @@ ASSIGN_KERNELS_PER_CALL = 2
 LOOP_CANDS, LOOP_DB = 2, 256
 ATTN_PER_DETECTION = 9 * 4
 DONE_FRAMES = 120                 # the flagship eval's sequence (phase 6)
+# The command line (phase 7): a bootstrap, three chunks and a tail of 5
+# real frames padded to a chunk.
+CLI_FRAMES = 2 + 3 * CHUNK + 5
+CLI_CHUNKS = 4
 
 
 def expected_launches(n_chunks):
@@ -870,6 +882,132 @@ def run_done(torch, dev, details):
                            num_matches=o.num_matches.tolist())
 
 
+def run_cli(torch, dev, details):
+    """This slice's path, through the entry point a user calls:
+    `gl_slam_tpu_torch.cli.main(["run", ...])` on the card (no --device)
+    over a KITTI-layout directory of 8-bit PNG frames. The launch counts
+    exclude the warm-up chunk (ChunkedPipeline.warmup, wrapped here to
+    count its launches and to keep the pipeline for the per-frame
+    outputs)."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from gl_slam_tpu_torch import cli
+    from gl_slam_tpu_torch.io import synthetic
+    from gl_slam_tpu_torch.io.kitti import write_kitti_sequence
+    from gl_slam_tpu_torch.ops import _build
+    from gl_slam_tpu_torch.slam.chunk_driver import ChunkedPipeline
+
+    data = os.path.join(ROOT, "chiprun_out", "kitti_cli")
+    out = os.path.join(ROOT, "chiprun_out", "cli_out")
+    for d in (data, out):
+        shutil.rmtree(d, ignore_errors=True)
+    scene = synthetic.make_scene(num_landmarks=20000, num_frames=CLI_FRAMES,
+                                 height=376, width=1241, seed=101,
+                                 motion="forward_turn")
+    t0 = time.perf_counter()
+    write_kitti_sequence(data, scene, CLI_FRAMES, max_keypoints=N_KPTS)
+    write_s = time.perf_counter() - t0
+
+    seen = {}
+    warmup = ChunkedPipeline.warmup
+
+    def counted_warmup(self, images):
+        before = dict(_build.LAUNCHES)
+        warmup(self, images)
+        seen["pipe"] = self
+        seen["warmup"] = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+
+    chunk, ba_every = CHUNK, CHUNK
+    argv = ["run", "--dataset", data, "--frontend", "superpoint",
+            "--preset", "flagship", "--subpix", "single",
+            "--weights", os.path.join(ROOT, "checkpoints"),
+            "--first-frame", "0", "--last-frame", str(CLI_FRAMES - 1),
+            "--chunk", str(chunk), "--ba-every", str(ba_every), "--out", out]
+    stdout = io.StringIO()
+    ChunkedPipeline.warmup = counted_warmup
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(stdout):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        ChunkedPipeline.warmup = warmup
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"command line: exit code {rc}")
+    check("pipe" in seen, "command line: no warm-up chunk ran")
+    report = json.loads(stdout.getvalue())
+    launches = {k: v - seen["warmup"][k] for k, v in _build.LAUNCHES.items()}
+    want = expected_launches(CLI_CHUNKS)
+    pipe = seen["pipe"]
+    o = pipe.stacked_outputs()
+    n_real = CLI_FRAMES - 2
+    real = np.arange(CLI_CHUNKS * CHUNK) < n_real
+    real_matches = float(o.num_matches[real].mean())
+    R, t, fidx = pipe.trajectory()
+    c_est = np.einsum('kij,kj->ki', R.transpose(0, 2, 1), -t)
+    c_gt = np.stack([-scene.poses_R[i].T @ scene.poses_t[i] for i in fidx])
+    err = np.sqrt(((c_est - c_gt) ** 2).sum(1))
+    ate_26 = float(np.sqrt((err[:N_FRAMES] ** 2).mean()))
+    want_ba = CLI_CHUNKS // max(ba_every // chunk, 1)
+    print(f"  wrote {CLI_FRAMES} PNG frames in {write_s:.1f} s; report "
+          f"{json.dumps(report)}", flush=True)
+    print(f"  frames fed {report['frames_fed']} tracked "
+          f"{report['frames_tracked']} rejected {report['frames_rejected']} "
+          f"(padding {int((~real).sum())}); mean matches over the real "
+          f"frames {real_matches:.1f}; ATE {report['ate_rmse_m']} m, over "
+          f"the first {N_FRAMES} keyframes {ate_26:.4f} m (phase 3, PNG-free "
+          f"frames of the {N_FRAMES}-frame scene: "
+          f"{details['slice']['ate_m']:.4f} m); BA runs {report['ba_runs']} "
+          f"(expected {want_ba}) recoveries {pipe.num_recoveries}; "
+          f"fps_incl_io {report['fps_incl_io']}; launches after the warm-up "
+          f"{launches} (expected {want}), warm-up {seen['warmup']}; phase "
+          f"{wall:.1f} s", flush=True)
+    traj = np.loadtxt(os.path.join(out, "trajectory.txt"))
+    check(report["subpix"] == "single", f"sub-pixel mode {report['subpix']}")
+    check(report["frames_fed"] == CLI_FRAMES
+          and report["frames_tracked"] == CLI_FRAMES,
+          f"command line: {report['frames_fed']} frames fed, "
+          f"{report['frames_tracked']} tracked, expected {CLI_FRAMES}")
+    check(report["frames_rejected"] == CLI_CHUNKS * CHUNK - n_real,
+          f"command line: {report['frames_rejected']} frames rejected")
+    check(bool((o.frame_ok == real).all()),
+          f"command line: frame_ok {o.frame_ok.tolist()}")
+    check(np.isfinite(R).all() and np.isfinite(t).all()
+          and np.isfinite(o.R).all() and np.isfinite(o.t).all(),
+          "command line: non-finite pose")
+    check(report["ate_rmse_m"] < 1.0,
+          f"command line: ATE {report['ate_rmse_m']} m >= 1 m")
+    check(real_matches > 300, f"command line: mean matches over the real "
+          f"frames {real_matches} <= 300")
+    check(pipe.num_recoveries == 0,
+          f"command line: {pipe.num_recoveries} recoveries")
+    check(report["ba_runs"] == want_ba,
+          f"command line: {report['ba_runs']} BA runs, expected {want_ba}")
+    check(traj.shape == (CLI_FRAMES, 12),
+          f"trajectory.txt has shape {traj.shape}")
+    check(os.path.exists(os.path.join(out, "map.json")), "no map.json")
+    check(launches == want,
+          f"command line: launch counts {launches} != {want}")
+    details["cli"] = dict(
+        config=f"gl-slam-tpu-torch {' '.join(argv[:-2])} (scene "
+               f"make_scene(seed=101, num_landmarks=20000, "
+               f"motion='forward_turn', num_frames={CLI_FRAMES}))",
+        report=report, mean_matches_real_frames=real_matches,
+        ate_first_frames_m=ate_26, phase3_ate_m=details["slice"]["ate_m"],
+        num_recoveries=pipe.num_recoveries, launches=launches,
+        expected_launches=want, warmup_launches=seen["warmup"],
+        png_write_s=write_s, phase_wall_s=wall,
+        num_matches=o.num_matches.tolist(),
+        frame_ok=o.frame_ok.tolist())
+    shutil.rmtree(data)                # keep what comes back small
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -919,7 +1057,7 @@ def main() -> int:
 
         print(f"phase 3: flagship-width chunked tracker with window BA "
               f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
-        launches = run_slice(torch, dev, details, *slice_args)
+        run_slice(torch, dev, details, *slice_args)
         print(f"phase 4: the same tracker with BA off, bootstrap + 1 chunk "
               f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
         run_no_ba(torch, dev, details, *slice_args)
@@ -931,6 +1069,10 @@ def main() -> int:
               f"BA and loop closing [{time.perf_counter() - t_start:.0f} s]",
               flush=True)
         run_done(torch, dev, details)
+        print(f"phase 7: the command line on a KITTI-layout directory, "
+              f"flagship preset, single-view head, padded tail chunk "
+              f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
+        launches = run_cli(torch, dev, details)
         details["wall_s"] = time.perf_counter() - t_start
         print(f"all phases passed [{details['wall_s']:.0f} s]", flush=True)
 

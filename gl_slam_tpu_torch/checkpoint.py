@@ -1,6 +1,7 @@
 """Carry the JAX package's trained weights into the port's modules.
 
-The committed checkpoints (`checkpoints/{sp,lg,kspair}_{tiny,flagship}.npz`)
+The committed checkpoints
+(`checkpoints/{sp,lg,ks,kspair}_{tiny,flagship}.npz`)
 are flat npz trees keyed by `jax.tree_util.keystr` of the Flax parameter
 tree, e.g. "['params']['layer0']['self_attn']['q']['kernel']". This module
 reads them with numpy alone and turns them into the port's `state_dict`s:
@@ -10,6 +11,8 @@ reads them with numpy alone and turns them into the port's `state_dict`s:
   * the matcher's batched attention modules (`nn.vmap` with broadcast
     params) share the parameter tree of the per-set calls, so one
     `self_attn` / `cross_attn` entry serves both GlueLayer paths.
+
+It also writes and reads trajectories as KITTI pose rows.
 """
 
 from __future__ import annotations
@@ -105,14 +108,15 @@ def lightglue_state_dict(flat: Mapping[str, np.ndarray]) -> dict:
     return out
 
 
-def pair_subpix_state_dict(flat: Mapping[str, np.ndarray]) -> dict:
-    """PairSubpixHead params (Flax `Dense_0..2`, in call order) -> the
-    port's PairSubpixHead state_dict (`dense0..2`)."""
+def subpix_state_dict(flat: Mapping[str, np.ndarray]) -> dict:
+    """SubpixHead or PairSubpixHead params (Flax `Dense_0..2`, in call
+    order; `ks_*.npz` and `kspair_*.npz`) -> the port's head's state_dict
+    (`dense0..2`)."""
     out = {}
     for key, a in flat.items():
         p = _path(key)
         if len(p) != 2 or not re.fullmatch(r"Dense_[0-2]", p[0]):
-            raise KeyError(f"unexpected PairSubpixHead parameter {key}")
+            raise KeyError(f"unexpected sub-pixel head parameter {key}")
         k, v = _leaf(f"dense{p[0][-1]}", p[1], a)
         out[k] = v
     return out
@@ -132,3 +136,20 @@ def load_module(module: torch.nn.Module, path_or_flat, convert) -> None:
             raise ValueError(f"{k}: checkpoint shape {tuple(v.shape)} != "
                              f"module shape {tuple(own[k].shape)}")
     module.load_state_dict(sd, strict=True)
+
+
+def export_kitti_trajectory(path: str, R: np.ndarray, t: np.ndarray) -> None:
+    """Write world->camera poses as KITTI rows (camera-to-world 3x4), the
+    text of the JAX package's writer byte for byte."""
+    rows = []
+    for i in range(len(R)):
+        P = np.concatenate([R[i].T, (-R[i].T @ t[i])[:, None]], axis=1)
+        rows.append(" ".join(f"{v:.9e}" for v in P.reshape(-1)))
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def load_kitti_trajectory(path: str):
+    """KITTI rows (camera-to-world 3x4) -> world->camera (R (F,3,3), t)."""
+    from .io.kitti import load_poses
+    return load_poses(path)

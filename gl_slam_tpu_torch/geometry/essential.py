@@ -45,6 +45,15 @@ def _homog(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
 
 
+def _basis(k: int, like: torch.Tensor) -> torch.Tensor:
+    """The unit 3-vector e_k in `like`'s dtype and device, made there by a
+    fill: `torch.tensor(..., device=cuda)` and `e[k] = 1.0` copy from
+    pageable host memory, which makes the host wait for the stream."""
+    e = torch.zeros(3, dtype=like.dtype, device=like.device)
+    e[k].fill_(1.0)
+    return e
+
+
 def _fit_eight_point(x0, x1, w):
     """Weighted 8-point fit with the (1,1,0) constraint: x0/x1 (..., 8, 2),
     w (..., 8) -> E (..., 3, 3)."""
@@ -55,7 +64,7 @@ def _fit_eight_point(x0, x1, w):
     M = (A * w[..., None]).transpose(-1, -2) @ A
     E = smallmat.smallest_eigvec(M).unflatten(-1, (3, 3))
     U, _, Vt = smallmat.svd3(E)
-    D = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
+    D = 1.0 - _basis(2, E)
     return (U * D) @ Vt
 
 
@@ -82,9 +91,8 @@ def _sampson_signed(E, x0, x1):
 
 def _tangent_basis(t):
     """(..., 3, 2) orthonormal basis of the plane perpendicular to unit t."""
-    e0 = torch.tensor([1.0, 0.0, 0.0], dtype=t.dtype, device=t.device)
-    e1 = torch.tensor([0.0, 1.0, 0.0], dtype=t.dtype, device=t.device)
-    a = torch.where((t[..., 0].abs() < 0.9)[..., None], e0, e1)
+    a = torch.where((t[..., 0].abs() < 0.9)[..., None], _basis(0, t),
+                    _basis(1, t))
     b1 = torch.linalg.cross(t, a, dim=-1)
     b1 = b1 / torch.clamp_min(torch.linalg.vector_norm(b1, dim=-1,
                                                        keepdim=True), 1e-12)
@@ -156,8 +164,9 @@ def decompose_essential(E):
     U, _, Vt = smallmat.svd3(E)
     U = U * torch.sign(smallmat.det3x3(U))[..., None, None]
     Vt = Vt * torch.sign(smallmat.det3x3(Vt))[..., None, None]
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    W = torch.zeros((3, 3), dtype=E.dtype, device=E.device)
+    for (i, j), v in (((0, 1), -1.0), ((1, 0), 1.0), ((2, 2), 1.0)):
+        W[i, j].fill_(v)
     R1 = U @ W @ Vt
     R2 = U @ W.T @ Vt
     t = U[..., :, 2]
@@ -240,9 +249,7 @@ def estimate_essential(K, uv0, uv1, mask, u, threshold_px: float = 0.5,
     R0s, t0s = _take(Rs, pick), _take(ts, pick)
     R0s = torch.cat([R0s, torch.eye(3, dtype=dt, device=R0s.device).expand(
         *lead, 1, 3, 3)], dim=-3)
-    t0s = torch.cat([t0s, torch.tensor([0.0, 0.0, 1.0], dtype=dt,
-                                       device=t0s.device).expand(*lead, 1, 3)],
-                    dim=-2)
+    t0s = torch.cat([t0s, _basis(2, t0s).expand(*lead, 1, 3)], dim=-2)
 
     R_s, t_s = refine_pose_sampson(x0h, x1h, maskf[..., None, :], R0s, t0s,
                                    thr2, refine_iters)

@@ -1,12 +1,11 @@
-"""Sub-pixel keypoint refinement: the centroid and the learned pair head.
+"""Sub-pixel keypoint refinement: the centroid and the two learned heads.
 
-Counterpart of `gather_patches`, `centroid_refine`, `PairSubpixHead` and
-`pair_refine_scatter` in gl_slam_tpu/models/subpix.py. The JAX package
-computes the centroid densely with shift-adds at large images and gathers
-patches through an x-packed copy of the image (TPU gather workarounds);
-this port gathers the (P, P) windows directly, which gives identical
-patches and the centroid up to float32 summation order. The single-view
-`SubpixHead` is not ported yet.
+Counterpart of `gather_patches`, `centroid_refine`, `SubpixHead`,
+`PairSubpixHead` and `pair_refine_scatter` in gl_slam_tpu/models/subpix.py.
+The JAX package computes the centroid densely with shift-adds at large
+images and gathers patches through an x-packed copy of the image (TPU
+gather workarounds); this port gathers the (P, P) windows directly, which
+gives identical patches and the centroid up to float32 summation order.
 """
 
 from __future__ import annotations
@@ -58,15 +57,49 @@ def centroid_refine(heat: torch.Tensor, kpts: torch.Tensor,
     return kpts + torch.stack([dx, dy], dim=-1)
 
 
+def _offsets(head, x: torch.Tensor) -> torch.Tensor:
+    """The heads' MLP: two dense layers with tanh-approximated GELU in the
+    head's dtype (products and bias adds round to it), a last dense layer
+    in float32, then `offset_range * tanh`."""
+    x = F.gelu(head.dense0(x.to(head.dtype)), approximate="tanh")
+    x = F.gelu(head.dense1(x), approximate="tanh")
+    return head.offset_range * torch.tanh(head.dense2(x.float()))
+
+
+class SubpixHead(nn.Module):
+    """Single-view sub-pixel refinement: per keypoint, the (P, P) image
+    patch around the integer detection and the descriptor sampled there ->
+    a bounded offset (px) in (-offset_range, offset_range)^2.
+
+    Three dense layers, P^2 + D -> hidden -> hidden -> 2; the two hidden
+    layers run in `dtype` (bfloat16 by default, as the Flax module), the
+    last in float32. Flax's `nn.gelu` is the tanh approximation."""
+
+    def __init__(self, desc_dim: int, hidden: int = 128, patch: int = 5,
+                 offset_range: float = 1.5,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.patch = patch
+        self.offset_range = offset_range
+        self.dtype = dtype
+        self.dense0 = Dense(patch * patch + desc_dim, hidden, dtype=dtype)
+        self.dense1 = Dense(hidden, hidden, dtype=dtype)
+        self.dense2 = Dense(hidden, 2, dtype=torch.float32)
+
+    def forward(self, patches, desc):
+        """patches (..., N, P, P); desc (..., N, D) -> (..., N, 2) float32
+        offsets."""
+        lead = patches.shape[:-2]
+        return _offsets(self, torch.cat([patches.reshape(*lead, -1), desc],
+                                        dim=-1))
+
+
 class PairSubpixHead(nn.Module):
     """Pair-conditioned sub-pixel refinement (Keypt2Subpx): per match, the
     (P, P) image patches around both integer keypoints, both descriptors
     and the match score -> a bounded offset (px) for the CURRENT keypoint.
 
-    Three dense layers, 2 P^2 + 2 D + 1 -> hidden -> hidden -> 2; the two
-    hidden layers run in `dtype` (bfloat16 by default, as the Flax module;
-    products and bias adds round to it), the last in float32; the output is
-    `offset_range * tanh`. Flax's `nn.gelu` is the tanh approximation."""
+    The layers of `SubpixHead`, with an input of 2 P^2 + 2 D + 1."""
 
     def __init__(self, desc_dim: int, hidden: int = 128, patch: int = 7,
                  offset_range: float = 1.5,
@@ -85,13 +118,9 @@ class PairSubpixHead(nn.Module):
         integer keypoints; desc0/1 (..., M, D); mscore (..., M) in [0, 1]
         -> (..., M, 2) float32 offsets for the current keypoints."""
         lead = patches1.shape[:-2]
-        x = torch.cat([patches0.reshape(*lead, -1),
-                       patches1.reshape(*lead, -1), desc0, desc1,
-                       mscore[..., None]], dim=-1).to(self.dtype)
-        x = F.gelu(self.dense0(x), approximate="tanh")
-        x = F.gelu(self.dense1(x), approximate="tanh")
-        off = self.dense2(x.float())
-        return self.offset_range * torch.tanh(off)
+        return _offsets(self, torch.cat(
+            [patches0.reshape(*lead, -1), patches1.reshape(*lead, -1),
+             desc0, desc1, mscore[..., None]], dim=-1))
 
 
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

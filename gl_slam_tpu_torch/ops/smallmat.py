@@ -127,8 +127,11 @@ def det3x3(A: torch.Tensor) -> torch.Tensor:
 
 
 def _unit(k: int, like: torch.Tensor) -> torch.Tensor:
+    """e_k along the last axis, shaped like `like`. A fill of the view:
+    `e[..., k] = 1.0` copies the 1.0 from the host on a card, which makes
+    the host wait for the stream."""
     e = torch.zeros_like(like)
-    e[..., k] = 1.0
+    e[..., k].fill_(1.0)
     return e
 
 

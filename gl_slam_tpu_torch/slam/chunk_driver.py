@@ -2,16 +2,19 @@
 
 Counterpart of gl_slam_tpu/slam/chunk_driver.py: bootstrap from two images
 through the same extractor and matcher the chunks use, then one chunk of T
-frames per `track_chunk` call, a sliding-window BA pass (slam/ba.py) with
+frames per `track_chunk` call (a partial tail chunk padded and gated by
+`frame_gate`), a sliding-window BA pass (slam/ba.py) with
 slot recycling every `ba_every` frames, the NaN health check with rollback
 at that cadence, and the periodic loop-closure hook (slam/loopclose.py).
 
 Nothing here reads the device back while tracking, apart from a loop
-closure that is applied. The BA window is derived from `num_kf` on the
-device. The health check works with a one-period lag: each BA trigger
-starts a non-blocking copy of `t_cur` into pinned host memory, marked by a
-CUDA event, and consumes the copy started at the previous trigger (waiting
-on that event only, not on the stream). A non-finite pose rolls the state
+closure that is applied: a chunk and its BA pass run under PyTorch's sync
+debug mode without a wait for the stream (tests/test_torch_cuda.py).
+Frames given as host arrays go up through pinned memory. The BA window is
+derived from `num_kf` on the device. The health check works with a
+one-period lag: each BA trigger starts a non-blocking copy of `t_cur` into
+pinned host memory, marked by a CUDA event, and consumes the copy started
+at the previous trigger (waiting on that event only, not on the stream). A non-finite pose rolls the state
 back to the last snapshot that was verified finite, up to two BA periods
 old. Snapshots alias the live state (all of it, the carried sub-pixel
 patches included): state updates never write in place (slam/state.py).
@@ -36,7 +39,8 @@ a generator of its own, seeded with the frame count at the check, as the
 JAX version keys it with `PRNGKey(frames)`; `loop_draws`, a callable
 frames -> that tensor, replaces it. Detection never touches the tracker's
 draws or state, so a run in which no closure fires equals the run with
-loop closing off bit for bit.
+loop closing off bit for bit. `warmup` draws from throwaway generators
+only, so a run with it equals the run without it bit for bit.
 """
 
 from __future__ import annotations
@@ -53,18 +57,20 @@ from ..config import SLAMConfig
 from ..device import resolve_device
 from . import ba as ba_mod
 from . import frontend, fused, loopclose
-from .state import recycle_free_slots
+from .state import _at, recycle_free_slots
 
 
 class ChunkedPipeline:
     """Usage:
         pipe = ChunkedPipeline(cfg, K, sp, lg, chunk=8, ba_every=8)
         pipe.bootstrap_from_images(img0, img1, gt_scale)
+        pipe.warmup(first chunk of images)          # optional
         for each chunk of images: pipe.track_chunk(images, frame_idx0)
         pipe.finish()
 
-    `subpix_head`: an optional PairSubpixHead on the pipeline's device;
-    its chunks refine the matched keypoints with it (slam/fused.py).
+    `subpix_head`: an optional SubpixHead or PairSubpixHead on the
+    pipeline's device (slam/fused.py): the first refines every detection,
+    the second the matched keypoints of each chunk.
 
     `ba_diag` appends to `ba_log`, per BA pass, its `ba.BADiag` (window
     reprojection before and after, live LM iterations: device scalars, read
@@ -131,10 +137,19 @@ class ChunkedPipeline:
         return torch.rand((n, H, 8), generator=self._gen,
                           device=self.device)
 
+    def _upload(self, a, dtype) -> torch.Tensor:
+        """A host array or a tensor on the pipeline's device. Host arrays go
+        through pinned memory, so the copy does not make the host wait for
+        the work already queued on the stream."""
+        if torch.is_tensor(a):
+            return a.to(self.device, dtype)
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
     def _images(self, images) -> torch.Tensor:
-        if not torch.is_tensor(images):
-            images = torch.from_numpy(np.asarray(images, dtype=np.float32))
-        return images.to(self.device, torch.float32)
+        return self._upload(images, torch.float32)
 
     @torch.no_grad()
     def bootstrap_from_images(self, img0, img1, gt_scale: float,
@@ -192,12 +207,13 @@ class ChunkedPipeline:
         # poses: between BAs it updates multiplicatively from accepted LM
         # steps, so in-bound excursions can compound; the window BA's last
         # two camera centres give the trusted step magnitude.
-        c_last = -(new_map.kf_R[last].T @ new_map.kf_t[last])
-        c_prev = -(new_map.kf_R[prev].T @ new_map.kf_t[prev])
+        R_last, t_last = _at(new_map.kf_R, last), _at(new_map.kf_t, last)
+        c_last = -(R_last.T @ t_last)
+        c_prev = -(_at(new_map.kf_R, prev).T @ _at(new_map.kf_t, prev))
         step_ba = torch.clamp(torch.linalg.vector_norm(c_last - c_prev),
                               1e-3, 10.0)
-        st = st._replace(map=new_map, R_cur=new_map.kf_R[last],
-                         t_cur=new_map.kf_t[last], t_rel_norm=step_ba)
+        st = st._replace(map=new_map, R_cur=R_last, t_cur=t_last,
+                         t_rel_norm=step_ba)
         if cfg.map.recycle_enabled:
             with record_function("backend.recycle"):
                 st = st._replace(map=recycle_free_slots(
@@ -207,13 +223,39 @@ class ChunkedPipeline:
         return st
 
     @torch.no_grad()
-    def track_chunk(self, images, frame_idx0: Optional[int] = None):
+    def warmup(self, images):
+        """One chunk of `images`, a BA pass and, with loop closing on, one
+        loop detection on a throwaway copy of the state, so that first-call
+        set-up (kernel builds, cuDNN plans, the allocator's pools) falls
+        outside a timed run. State updates never write in place, so the
+        copy is the live state itself; the RANSAC and PnP draws come from
+        generators of their own, so the pipeline's state, draws and counters
+        are as before."""
+        H = self.cfg.geometry.essential_hypotheses
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        u = torch.rand((self.chunk, H, 8), generator=gen, device=self.device)
+        st, _ = self.chunk_fn(self.state, self._images(images), self._frames,
+                              u)
+        if self.enable_ba:
+            st = self._ba_fn(st)
+        if self._detect_fn is not None:
+            self._detect_fn(st, self._seeded_gumbel(0, st))
+        self.finish()
+
+    @torch.no_grad()
+    def track_chunk(self, images, frame_idx0: Optional[int] = None,
+                    frame_gate=None):
         """Track one chunk of T frames, then run the BA pass and the health
-        check when their cadence is due (no host read-back)."""
+        check when their cadence is due (no host read-back). `frame_gate`
+        (T,) bool force-rejects the frames where it is False: the padding
+        of a partial tail chunk (slam/fused.py)."""
         if frame_idx0 is None:
             frame_idx0 = self._frames
+        gate = None if frame_gate is None \
+            else self._upload(np.asarray(frame_gate, dtype=bool), torch.bool)
         self.state, outs = self.chunk_fn(self.state, self._images(images),
-                                         frame_idx0, self.draw(self.chunk))
+                                         frame_idx0, self.draw(self.chunk),
+                                         frame_gate=gate)
         self.outputs.append(outs)
         self._frames += self.chunk
         self._chunks_since_ba += 1
@@ -296,10 +338,13 @@ class ChunkedPipeline:
         if self._loop_draws is not None:
             g = torch.as_tensor(self._loop_draws(frames), dtype=torch.float32)
             return g.to(self.device)
+        return self._seeded_gumbel(frames, self.state)
+
+    def _seeded_gumbel(self, seed: int, st) -> torch.Tensor:
         cfg = self.cfg
         shape = (cfg.runtime.loop_candidates, cfg.geometry.pnp_hypotheses,
-                 self.state.map.kf_db_idx.shape[1])
-        gen = torch.Generator(device=self.device).manual_seed(frames)
+                 st.map.kf_db_idx.shape[1])
+        gen = torch.Generator(device=self.device).manual_seed(seed)
         return loopclose.pnp_draws(gen, shape, device=self.device)
 
     def _dispatch_detect(self):

@@ -26,7 +26,7 @@ from ..config import SLAMConfig
 from ..geometry import essential, projection, se3, triangulation
 from ..ops import match as match_ops
 from . import pose_ba, reobserve
-from .state import (MapState, _scatter, init_map_state, insert_keyframe,
+from .state import (MapState, _at, _scatter, init_map_state, insert_keyframe,
                     map_state_from_numpy)
 
 _I32 = torch.int32
@@ -178,7 +178,7 @@ def bootstrap_step(cfg: SLAMConfig, K, state: TrackState, f0: FrameFeatures,
     N = f0.kpts.shape[0]
     none = torch.full((N,), -1, dtype=_I32, device=dev)
     ar = torch.arange(N, dtype=_I32, device=dev)
-    minus1 = torch.tensor(-1, dtype=_I32, device=dev)
+    minus1 = torch.full((), -1, dtype=_I32, device=dev)
     mstate = insert_keyframe(
         state.map, R0, t0, f0.frame_idx, f0.kpts, f0.desc, f0.valid, none,
         torch.zeros((N, 3), device=dev),
@@ -251,7 +251,7 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
                                         ess.t * state.t_rel_norm)
 
     # 4. 3D-2D association. (a) matched prev keypoints with a map point
-    prev_kp2mp = mstate.kf_kp2mp[prev_c]
+    prev_kp2mp = _at(mstate.kf_kp2mp, prev_c)
     inl_pair = pair & ess.inliers
     mp_prev = torch.where(inl_pair, prev_kp2mp, -1)
     mp_bad = mstate.pts_bad[torch.clamp(mp_prev, 0, Pmax - 1).long()]
@@ -297,7 +297,8 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
                 coarse_scale_mult=cfg.ba.pose_only_coarse_mult,
                 point_weights=pt_w)
         best = torch.argmin(pb.final_cost)
-        R_cur, t_cur, pose_cost = pb.R[best], pb.t[best], pb.final_cost[best]
+        R_cur, t_cur, pose_cost = (_at(pb.R, best), _at(pb.t, best),
+                                   _at(pb.final_cost, best))
     else:
         R_cur, t_cur = R_pred, t_pred
         pose_cost = torch.zeros((), device=dev)
@@ -355,7 +356,7 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
     #    anchor them to the solved current pose
     cur_idx = torch.clamp(m.matches0, 0, N - 1).long()
     is_rest = inl_pair & (prev_kp2mp < 0) & (reobs_mpid[cur_idx] < 0)
-    R_prev, t_prev = mstate.kf_R[prev_c], mstate.kf_t[prev_c]
+    R_prev, t_prev = _at(mstate.kf_R, prev_c), _at(mstate.kf_t, prev_c)
     eye3 = torch.eye(3, dtype=torch.float32, device=dev)
     zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
     s_lm = torch.linalg.vector_norm(t_cur - (R_cur @ R_prev.T) @ t_prev)

@@ -1,11 +1,12 @@
 """Chunked pipeline: batched extraction, batched prologue, per-frame loop.
 
-Counterpart of gl_slam_tpu/slam/fused.py (centroid or pair-conditioned
-sub-pixel refinement, the pass-1 prologue without in-loop recovery), with
-extraction through the NMS kernel as under the reference's
-`use_pallas_nms=True`. For a chunk of T frames:
+Counterpart of gl_slam_tpu/slam/fused.py (centroid, single-view learned
+or pair-conditioned sub-pixel refinement, the pass-1 prologue without
+in-loop recovery), with extraction through the NMS kernel as under the
+reference's `use_pallas_nms=True`. For a chunk of T frames:
 
-  1. the extractor runs batched over the T images;
+  1. the extractor runs batched over the T images (and the single-view
+     head, when given, refines each detection there);
   2. a prologue matches all T consecutive pairs at once (one LightGlue
      pass and one fused assignment over a pair axis), refines the current
      keypoints with the pair head when one is given, and runs the pairs'
@@ -15,8 +16,9 @@ extraction through the NMS kernel as under the reference's
 
 After a rejected frame, every later frame of the chunk is rejected too
 (its precomputed pair is stale), as the JAX version does under
-every-frame keyframing; the recovery path of motion-gated keyframing and
-the single-view learned head (`SubpixHead`) are not ported yet.
+every-frame keyframing; the recovery path of motion-gated keyframing is
+not ported yet. A `frame_gate` lets the driver feed a padded tail chunk:
+its padding frames run the whole step but are never accepted.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from torch.profiler import record_function
 from ..config import SLAMConfig
 from ..geometry import essential as essential_mod
 from ..models.lightglue import normalize_keypoints
-from ..models.subpix import (PairSubpixHead, centroid_refine,
+from ..models.subpix import (PairSubpixHead, SubpixHead, centroid_refine,
                              gather_patches, pair_refine_scatter)
 from ..models.superpoint import sample_descriptors
 from ..ops import assignment as assignment_ops
@@ -50,20 +52,25 @@ def detector_heatmap(cfg: SLAMConfig, sp_net, images):
 
 
 def _pair_mode(subpix_head) -> bool:
-    if subpix_head is None:
+    """True for a PairSubpixHead, False for None or a SubpixHead."""
+    if subpix_head is None or isinstance(subpix_head, SubpixHead):
         return False
     if not isinstance(subpix_head, PairSubpixHead):
-        raise NotImplementedError(
-            "only the pair-conditioned sub-pixel head (PairSubpixHead) is "
-            "ported; the single-view SubpixHead is not yet, see ROADMAP.md")
+        raise TypeError(f"subpix_head must be a SubpixHead or a "
+                        f"PairSubpixHead, not {type(subpix_head).__name__}")
     return True
 
 
 def build_extract_fn(cfg: SLAMConfig, sp_net, subpix_head=None):
     """fn(images (B, H, W) in [0, 1]) -> (kpts (B, N, 2), desc (B, N, D),
-    valid (B, N)): CNN forward, NMS + top-K, centroid refinement and
+    valid (B, N)): CNN forward, NMS + top-K, sub-pixel refinement and
     descriptor sampling. On the card the NMS is the hand-written kernel
     (ops/nms.nms dispatches on the heatmap's device).
+
+    The refinement is the centroid, or with a SubpixHead the learned
+    single-view offset: the head reads the (P, P) image patch and the
+    descriptor at each integer detection, and the descriptors are sampled
+    again at the refined points.
 
     With a PairSubpixHead the per-frame refinement here stays the centroid:
     the learned refinement is pair-conditioned and runs on matched
@@ -71,14 +78,20 @@ def build_extract_fn(cfg: SLAMConfig, sp_net, subpix_head=None):
     (B, N, P, P) image patches around round(kpts) that the head reads."""
     N = cfg.frontend.max_keypoints
     pair_mode = _pair_mode(subpix_head)
+    single_mode = subpix_head is not None and not pair_mode
 
     def extract_batch(images):
         heat, grid = detector_heatmap(cfg, sp_net, images)
         kpts, _, valid = nms_ops.detect_keypoints(
             heat, N, cfg.frontend.score_threshold, cfg.frontend.nms_radius)
         kpts = kpts.float()
-        src = images if cfg.frontend.subpix_source == "image" else heat
-        kpts = centroid_refine(src, kpts, cfg.frontend.subpix_patch)
+        if single_mode:
+            patches = gather_patches(images, kpts, subpix_head.patch)
+            kpts = kpts + subpix_head(patches,
+                                      sample_descriptors(grid, kpts))
+        else:
+            src = images if cfg.frontend.subpix_source == "image" else heat
+            kpts = centroid_refine(src, kpts, cfg.frontend.subpix_patch)
         desc = sample_descriptors(grid, kpts)
         if pair_mode:
             return kpts, desc, valid, gather_patches(
@@ -110,8 +123,19 @@ def build_matcher(cfg: SLAMConfig, lg_net):
 
 def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int,
                    subpix_head=None, prologue: bool = True):
-    """fn(state, images (T, H, W), frame_idx0, u (T, hypotheses, 8)) ->
-    (state, list of T TrackOutputs). `u` holds each pair's RANSAC draws.
+    """fn(state, images (T, H, W), frame_idx0, u (T, hypotheses, 8),
+    frame_gate=None) -> (state, list of T TrackOutputs). `u` holds each
+    pair's RANSAC draws.
+
+    `frame_gate` (T,) bool force-rejects the frames where it is False (ANDed
+    into the acceptance gate): a driver pads a partial tail chunk with
+    copies of its last real frame and gates the copies off. Gated frames
+    still run the whole step, matcher passes included. Padding only ever
+    trails real frames, so a gated frame leaves the chain of acceptances
+    (`ok_prev`) as it was.
+
+    With a SubpixHead the extractor refines every detection (see
+    build_extract_fn); the rest of the chunk is that of the centroid.
 
     With a PairSubpixHead (`subpix_head`), the prologue refines each pair's
     matched CURRENT keypoints from both endpoint patches, descriptors and
@@ -136,7 +160,8 @@ def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int,
     reobs_matcher = lg_match if cfg.frontend.reobs_matcher == "lightglue" \
         else None
 
-    def chunk_fn(state: frontend.TrackState, images, frame_idx0: int, u):
+    def chunk_fn(state: frontend.TrackState, images, frame_idx0: int, u,
+                 frame_gate=None):
         with record_function("extract"):
             feats = extract_batch(images)
         kpts_b, desc_b, valid_b = feats[:3]
@@ -173,6 +198,7 @@ def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int,
         frame_ids = torch.arange(frame_idx0, frame_idx0 + chunk,
                                  dtype=torch.int32, device=kpts_b.device)
         for i in range(chunk):
+            gate = ok_prev if frame_gate is None else ok_prev & frame_gate[i]
             f = frontend.FrameFeatures(
                 kpts=kpts_b[i], desc=desc_b[i], valid=valid_b[i],
                 frame_idx=frame_ids[i])
@@ -181,9 +207,10 @@ def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int,
             ess = essential_mod.EssentialResult(*(x[i] for x in ess_b))
             state, out = frontend.track_step_impl(
                 cfg, K, state, f, matches=m, ess_result=ess,
-                matcher=reobs_matcher, accept_gate=ok_prev,
+                matcher=reobs_matcher, accept_gate=gate,
                 patches=None if patches_b is None else patches_b[i])
-            ok_prev = out.frame_ok
+            ok_prev = out.frame_ok if frame_gate is None \
+                else torch.where(frame_gate[i], out.frame_ok, ok_prev)
             outs.append(out)
         return state, outs
 

@@ -40,7 +40,7 @@ from ..geometry import pnp, se3
 from ..ops import match as match_ops
 from ..ops import optim
 from ..ops.select import topk_stable
-from .state import MapState, _scatter
+from .state import MapState, _at, _scatter
 
 _I32 = torch.int32
 
@@ -61,12 +61,6 @@ class LoopDetection(NamedTuple):
     region_votes: Optional[torch.Tensor] = None  # live candidates
     n_cons: Optional[torch.Tensor] = None        # consistent hits
     pnp_raw_ok: Optional[torch.Tensor] = None    # the PnP gate alone
-
-
-def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """x[i] for a 0-d index tensor on the device. Plain indexing turns a
-    0-d index into a Python int, a read that waits for the stream."""
-    return x.index_select(0, i.reshape(1))[0]
 
 
 def pnp_draws(gen: torch.Generator, shape, device=None) -> torch.Tensor:

@@ -71,6 +71,12 @@ class MapState(NamedTuple):
         return self.pts_xyz.shape[0]
 
 
+def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] for a 0-d index tensor on the device. Plain indexing turns a
+    0-d index into a Python int, a read that waits for the stream."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
 def _scatter(x: torch.Tensor, idx: torch.Tensor, vals, flat: bool = False,
              accumulate: bool = False) -> torch.Tensor:
     """`x.at[idx].set(vals, mode='drop')` (or `.add` with `accumulate`) for
@@ -207,7 +213,7 @@ def insert_keyframe(state: MapState, R, t, frame_idx, kpts, desc, kp_valid,
     kf_kp2mp = _scatter(state.kf_kp2mp, k_w, kp2mp_row)
     prev_c = torch.clamp(prev_kf, 0, Kmax - 1).long()
     new_kp_prev_w = torch.where(nv & (pid < Pmax), new_kp_prev, N)
-    prev_row = _scatter(state.kf_kp2mp[prev_c], new_kp_prev_w,
+    prev_row = _scatter(_at(state.kf_kp2mp, prev_c), new_kp_prev_w,
                         torch.where(nv, pid, -1))
     kf_kp2mp = kf_kp2mp.index_put((prev_c,), prev_row)
 

@@ -1,10 +1,10 @@
 """End-to-end learned tracking on a rendered scene, scored as ATE.
 
 Counterpart of the inference half of gl_slam_tpu/train/e2e.py: build the
-SuperPoint and LightGlue networks and the pair sub-pixel head at the
-committed checkpoints' shapes, load their weights, and track a rendered
-sequence through the chunked pipeline with its periodic window BA and loop
-closing. Training and the single-view sub-pixel head are not ported.
+SuperPoint and LightGlue networks and the sub-pixel heads (single-view and
+pair) at the committed checkpoints' shapes, load their weights, and track
+a rendered sequence through the chunked pipeline with its periodic window
+BA and loop closing. Training is not ported.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from ..config import (FLAGSHIP_DESC_DIM, FLAGSHIP_LG, FLAGSHIP_SP_CHANNELS,
 from ..device import resolve_device
 from ..io import synthetic
 from ..models.lightglue import LightGlueNet
-from ..models.subpix import PairSubpixHead
+from ..models.subpix import PairSubpixHead, SubpixHead
 from ..models.superpoint import SuperPointNet
 from ..slam.chunk_driver import ChunkedPipeline
 
@@ -70,36 +70,37 @@ def load_tiny_frontend(ckpt_dir: str = "checkpoints", device=None,
                           TINY_LG, device, dtype)
 
 
-def _load_pair_subpix(ckpt_dir, name, D, device, dtype, pair):
-    if not pair:
-        raise NotImplementedError(
-            "the single-view SubpixHead (ks_*.npz) is not ported yet; see "
-            "ROADMAP.md")
-    path = ckpt.params_path(ckpt_dir, name)
+def _load_subpix(ckpt_dir, tag, D, device, dtype, pair):
+    path = ckpt.params_path(ckpt_dir, f"kspair_{tag}" if pair
+                            else f"ks_{tag}")
     if not os.path.exists(path):
         return None
-    head = PairSubpixHead(D, patch=7, offset_range=1.5,
-                          dtype=torch.bfloat16 if dtype is None else dtype)
-    ckpt.load_module(head, path, ckpt.pair_subpix_state_dict)
+    cls = PairSubpixHead if pair else SubpixHead
+    head = cls(D, patch=7, offset_range=1.5,
+               dtype=torch.bfloat16 if dtype is None else dtype)
+    ckpt.load_module(head, path, ckpt.subpix_state_dict)
     return head.to(resolve_device(device)).eval()
 
 
 def load_flagship_subpix(ckpt_dir: str = "checkpoints", pair: bool = True,
                          device=None,
                          dtype: Optional[torch.dtype] = None):
-    """The trained flagship pair sub-pixel head (kspair_flagship.npz: D 256,
-    7 x 7 patches, input width 611) as a PairSubpixHead; None if the
-    checkpoint is missing. `dtype`: the hidden layers' compute dtype
-    (default bfloat16, as the JAX package)."""
-    return _load_pair_subpix(ckpt_dir, "kspair_flagship", FLAGSHIP_DESC_DIM,
-                             device, dtype, pair)
+    """The trained flagship sub-pixel head, 7 x 7 patches, D 256: with
+    `pair` the PairSubpixHead of kspair_flagship.npz (input width 611),
+    else the single-view SubpixHead of ks_flagship.npz (input width 305);
+    None if the checkpoint is missing. `dtype`: the hidden layers' compute
+    dtype (default bfloat16, as the JAX package)."""
+    return _load_subpix(ckpt_dir, "flagship", FLAGSHIP_DESC_DIM, device,
+                        dtype, pair)
 
 
-def load_tiny_subpix(ckpt_dir: str = "checkpoints", pair: bool = True,
+def load_tiny_subpix(ckpt_dir: str = "checkpoints", pair: bool = False,
                      device=None, dtype: Optional[torch.dtype] = None):
-    """The tiny preset's pair sub-pixel head (kspair_tiny.npz, D 64)."""
-    return _load_pair_subpix(ckpt_dir, "kspair_tiny", TINY_DESC_DIM, device,
-                             dtype, pair)
+    """The tiny preset's sub-pixel head (D 64): the single-view SubpixHead
+    of ks_tiny.npz, or with `pair` the PairSubpixHead of kspair_tiny.npz.
+    The defaults of `pair` are the JAX package's."""
+    return _load_subpix(ckpt_dir, "tiny", TINY_DESC_DIM, device, dtype,
+                        pair)
 
 
 def render_stack(scene, n_frames: int, max_keypoints: int,
@@ -136,9 +137,10 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
     pass, `ba_reproj` (the window's mean reprojection error in px before
     and after), `ba_lm_iters` (LM iterations before the carry froze) and
     `ba_ms` (host time to issue the pass, and time between two CUDA events
-    around it or None on the CPU). `subpix`: an optional PairSubpixHead
-    (load_*_subpix) that refines the matched keypoints in every chunk; None
-    keeps the centroid refinement."""
+    around it or None on the CPU). `subpix`: an optional sub-pixel head
+    (load_*_subpix): a SubpixHead refines every detection, a PairSubpixHead
+    the matched keypoints in every chunk; None keeps the centroid
+    refinement."""
     dev = resolve_device(device)
     if stack is None:
         stack = render_stack(scene, n_frames, cfg.frontend.max_keypoints,

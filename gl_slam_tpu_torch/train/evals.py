@@ -68,20 +68,22 @@ def flagship_eval(ckpt_dir: str, frames: int = 120, seed: int = 101,
     D=256, 9-layer matcher on all three passes, loop closing on), the
     committed flagship weights, window BA every 8 frames, over a held-out
     rendered sequence; ATE and tracked fps from the same run. `subpix`:
-    "pair" (the learned pair head) or "centroid". `warmup` first tracks
+    "pair" (the learned pair head), "single" (the single-view head) or
+    "centroid". `warmup` first tracks
     the bootstrap plus one chunk (cuDNN plans, allocator) outside the
     measured run. `diag_out` receives run_learned_e2e's diagnostics."""
     dev = resolve_device(device)
     cfg = flagship_config()
     sp, lg = e2e.load_flagship_frontend(ckpt_dir, device=dev)
+    if subpix not in ("pair", "single", "centroid"):
+        raise ValueError(f"subpix={subpix!r}")
     head = None
-    if subpix == "pair":
-        head = e2e.load_flagship_subpix(ckpt_dir, device=dev)
+    if subpix != "centroid":
+        head = e2e.load_flagship_subpix(ckpt_dir, pair=subpix == "pair",
+                                        device=dev)
         if head is None:
-            raise FileNotFoundError(f"no kspair_flagship.npz in {ckpt_dir}")
-    elif subpix != "centroid":
-        raise NotImplementedError(f"subpix={subpix!r}: the single-view "
-                                  "head is not ported; see ROADMAP.md")
+            raise FileNotFoundError(f"no {subpix} sub-pixel checkpoint in "
+                                    f"{ckpt_dir}")
     scene = synthetic.make_scene(
         num_landmarks=landmarks, num_frames=frames,
         height=cfg.frontend.image_height, width=cfg.frontend.image_width,

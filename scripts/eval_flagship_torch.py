@@ -3,14 +3,17 @@ one run.
 
 Tracks the 120-frame held-out flagship sequence (376x1241, N=2048, D=256,
 the 9-layer matcher on all three passes per frame, the committed flagship
-weights and pair sub-pixel head, window BA every 8 frames, loop closing
-on) through `gl_slam_tpu_torch.train.e2e.run_learned_e2e` and writes one
-JSON report: ATE (m and % of the ~1 m-per-frame trajectory), keyframes,
-BA runs, matches, rejected frames, tracked fps, loop closures, the card's
-name and power limit. tests/test_torch_eval_reports.py holds the report to
+weights and sub-pixel head (pair by default; --subpix single or
+centroid), window BA every 8 frames, loop closing on, in the clean or the
+hard photometric domain) through
+`gl_slam_tpu_torch.train.e2e.run_learned_e2e` and writes one JSON report:
+ATE (m and % of the ~1 m-per-frame trajectory), keyframes, BA runs,
+matches, rejected frames, tracked fps, loop closures, the card's name and
+power limit. tests/test_torch_eval_reports.py holds the report to
 the bounds of tests/test_flagship_e2e.py.
 
     python scripts/eval_flagship_torch.py            # on the card
+    python scripts/eval_flagship_torch.py --domain hard
     python scripts/eval_flagship_torch.py --device cpu --frames 26
 """
 
@@ -31,7 +34,8 @@ def main():
     ap.add_argument("--landmarks", type=int, default=20000)
     ap.add_argument("--chunk", type=int, default=8)
     ap.add_argument("--motion", default="forward_turn")
-    ap.add_argument("--subpix", default="pair", choices=["pair", "centroid"])
+    ap.add_argument("--subpix", default="pair",
+                    choices=["pair", "single", "centroid"])
     ap.add_argument("--domain", default="clean", choices=["clean", "hard"])
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' to run on the CPU")

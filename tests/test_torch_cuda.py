@@ -315,7 +315,7 @@ def test_pair_mode_run_on_the_card(cuda_device):
     scene = synthetic.make_scene(num_landmarks=900, num_frames=12, height=H,
                                  width=W, desc_dim=D, seed=11)
     sp, lg = e2e.load_tiny_frontend(ckpt, device=cuda_device)
-    head = e2e.load_tiny_subpix(ckpt, device=cuda_device)
+    head = e2e.load_tiny_subpix(ckpt, pair=True, device=cuda_device)
     before = _build.LAUNCHES["nms"]
     diag = {}
     res = e2e.run_learned_e2e(sp, lg, scene, cfg, 12, chunk=5, ba_every=5,
@@ -329,6 +329,105 @@ def test_pair_mode_run_on_the_card(cuda_device):
     assert res.mean_matches > 50 and res.ate_m < 1.0, res
     patches = diag["state"].prev_patches
     assert patches.is_cuda and patches.shape == (N, 7, 7)
+
+
+def test_single_mode_run_on_the_card_like_the_cpu(cuda_device):
+    """The tiny pipeline with the single-view head (bfloat16, ks_tiny.npz)
+    refining every detection, on the card and on the CPU with the same
+    RANSAC draws, each held to the bounds of
+    test_pair_mode_run_on_the_card."""
+    import dataclasses
+    import os
+
+    from gl_slam_tpu_torch import config as t_cfg
+    from gl_slam_tpu_torch.io import synthetic
+    from gl_slam_tpu_torch.models.subpix import SubpixHead
+    from gl_slam_tpu_torch.train import e2e
+
+    ckpt = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
+    H, W, N, D = 240, 320, 128, t_cfg.TINY_DESC_DIM
+    cfg = t_cfg.micro_config(H, W, N, D)
+    cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime,
+                                                  loop_closing=False))
+    scene = synthetic.make_scene(num_landmarks=900, num_frames=12, height=H,
+                                 width=W, desc_dim=D, seed=11)
+    stack = e2e.render_stack(scene, 12, N)
+    hyp = cfg.geometry.essential_hypotheses
+    draws = np.random.default_rng(0).random((11, hyp, 8)).astype(np.float32)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        sp, lg = e2e.load_tiny_frontend(ckpt, device=dev)
+        head = e2e.load_tiny_subpix(ckpt, device=dev)
+        assert isinstance(head, SubpixHead)
+        pos = [0]
+
+        def feed(n):
+            pos[0] += n
+            return torch.from_numpy(draws[pos[0] - n:pos[0]])
+
+        before = _build.LAUNCHES["nms"]
+        diag = {}
+        res = e2e.run_learned_e2e(sp, lg, scene, cfg, 12, chunk=5,
+                                  ba_every=5, device=dev, stack=stack,
+                                  diag_out=diag, subpix=head, draws=feed)
+        launched = _build.LAUNCHES["nms"] - before
+        assert launched == (3 if dev.type == "cuda" else 0)
+        assert res.num_keyframes == 12 and res.num_rejected == 0, res
+        assert res.num_ba_runs == 2 and diag["num_recoveries"] == 0
+        assert np.isfinite(diag["R"]).all() and np.isfinite(diag["t"]).all()
+        assert res.mean_matches > 50 and res.ate_m < 1.0, res
+        assert diag["state"].prev_patches is None
+        out[dev.type] = res
+    print(f"single mode: card {out['cuda']}, cpu {out['cpu']}")
+
+
+def test_cli_chunk_loop_does_not_wait_for_the_card(cuda_device, tmp_path,
+                                                  capsys):
+    """The command line on the card (tiny preset, single-view head, a
+    KITTI layout with a padded tail chunk): every `track_chunk` after the
+    warm-up, uploads of the frames and the gate included, runs under
+    PyTorch's sync debug mode, which raises on an operation that makes the
+    host wait for the stream."""
+    import json
+    import os
+
+    from gl_slam_tpu_torch import cli
+    from gl_slam_tpu_torch.io import synthetic
+    from gl_slam_tpu_torch.io.kitti import write_kitti_sequence
+    from gl_slam_tpu_torch.slam.chunk_driver import ChunkedPipeline
+
+    ckpt = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
+    scene = synthetic.make_scene(num_landmarks=700, num_frames=15,
+                                 height=160, width=240, desc_dim=64, seed=23)
+    root = write_kitti_sequence(str(tmp_path / "kitti"), scene, 15,
+                                max_keypoints=96)
+    track = ChunkedPipeline.track_chunk
+    calls = []
+
+    def strict(self, *args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = track(self, *args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        calls.append(kw.get("frame_gate") is not None)
+        return out
+
+    ChunkedPipeline.track_chunk = strict
+    try:
+        rc = cli.main(["run", "--dataset", root, "--frontend", "superpoint",
+                       "--preset", "tiny", "--subpix", "single",
+                       "--weights", ckpt, "--out", str(tmp_path / "out"),
+                       "--first-frame", "0", "--last-frame", "14",
+                       "--height", "160", "--width", "240", "--kpts", "96",
+                       "--chunk", "4", "--ba-every", "4"])
+    finally:
+        ChunkedPipeline.track_chunk = track
+    assert rc == 0
+    report = json.loads(capsys.readouterr().out)
+    assert calls == [False, False, False, True]   # 3 chunks and the tail
+    assert report["frames_fed"] == 15 and report["frames_rejected"] >= 3
+    assert report["frames_tracked"] >= 11 and report["ba_runs"] == 4
 
 
 def _revisit(dev):

@@ -113,7 +113,8 @@ def test_health_check_rolls_back_a_poisoned_pose(frontend, scene):
 def test_health_check_rolls_back_the_carried_patches(frontend, scene):
     """As above in pair mode: the snapshot, and so the rollback, carries the
     pair sub-pixel head's patches of the last accepted frame."""
-    head = e2e.load_tiny_subpix(CKPT, device="cpu", dtype=torch.float32)
+    head = e2e.load_tiny_subpix(CKPT, pair=True, device="cpu",
+                                dtype=torch.float32)
     good = _poison_and_roll_back(frontend, scene, head)
     assert good.prev_patches is not None
     assert good.prev_patches.shape == (N, head.patch, head.patch)

@@ -4,6 +4,9 @@ card by its script; a test skips while its report is absent.
   * FLAGSHIP_EVAL_TORCH.json (scripts/eval_flagship_torch.py): the bounds
     of tests/test_flagship_e2e.py::test_flagship_eval_report_bounds, at
     least 100 frames, from an NVIDIA card;
+  * FLAGSHIP_EVAL_HARD_TORCH.json (the same script, --domain hard): the
+    bounds of tests/test_flagship_e2e.py::
+    test_flagship_hard_eval_report_bounds, from an NVIDIA card;
   * LOOPCLOSE_EVAL_TORCH.json (scripts/eval_loopclose_torch.py): the
     bounds of tests/test_loopclose.py::test_loopclose_eval_bounds.
 """
@@ -33,6 +36,17 @@ def test_flagship_eval_torch_report_bounds():
     assert rep["num_keyframes"] >= 0.97 * rep["num_frames"], rep
     assert rep["mean_matches"] > 300, rep
     assert rep["num_ba_runs"] >= 5, rep
+
+
+def test_flagship_hard_eval_torch_report_bounds():
+    rep = _report("FLAGSHIP_EVAL_HARD_TORCH.json", "eval_flagship_torch.py "
+                  "--domain hard")
+    assert rep["device"].startswith("NVIDIA"), rep["device"]
+    assert "domain=hard" in rep["config"], rep["config"]
+    assert rep["num_frames"] >= 100, rep
+    assert rep["ate_pct_of_trajectory"] <= 1.0, rep
+    assert rep["num_keyframes"] >= 0.9 * rep["num_frames"], rep
+    assert rep["mean_matches"] > 300, rep
 
 
 def test_loopclose_eval_torch_report_bounds():

@@ -50,6 +50,10 @@ def test_scan_sees_the_package():
     assert "chip_smoke.py" in names
     assert os.path.join("gl_slam_tpu_torch", "slam", "fused.py") in names
     assert os.path.join("gl_slam_tpu_torch", "slam", "loopclose.py") in names
+    for module in ("cli.py", "metrics.py", os.path.join("io", "kitti.py"),
+                   os.path.join("io", "euroc.py"),
+                   os.path.join("viz", "viewer.py")):
+        assert os.path.join("gl_slam_tpu_torch", module) in names
     for script in ("eval_flagship_torch.py", "eval_loopclose_torch.py"):
         assert os.path.join("scripts", script) in names
 
@@ -89,3 +93,8 @@ def test_eval_entry_points_default_to_the_card(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         evals.loopclose_ab(ckpt)
     assert evals.device_line("cpu") == "cpu"
+    # the command line without --device
+    from gl_slam_tpu_torch import cli
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["run", "--frontend", "superpoint", "--weights", ckpt,
+                  "--out", os.path.join(ROOT, "chiprun_out", "unused")])
