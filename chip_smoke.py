@@ -42,10 +42,22 @@ Phases (any failure exits non-zero and prints no result line):
      every 8, so a bootstrap, three chunks and a tail of 5 real frames
      padded to 8 and gated off; check the report (31 frames fed and
      tracked, 3 rejected, ATE, matches over the real frames, BA count, 0
-     recoveries), the artifacts and the launch counts after the warm-up.
+     recoveries), the artifacts and the launch counts after the warm-up;
+  8. run the command line's per-frame route on the same directory:
+     `--frontend superpoint --per-frame --preset flagship` (batch-1
+     extraction through the NMS kernel at the CLI's radius 3, LightGlue
+     and the fused assignment on every pass, the essential RANSAC inside
+     each step, async BA), held to: every frame the ground-truth gate lets
+     through tracked, ATE <= 1 m, no recovery, the launch counts the path
+     implies; a profiled run of its first 12 frames for the idle share and
+     host time by stage; then `--frontend harris` at full width (NMS kernel
+     at radius 4) and the default oracle route (synthetic sequence), each
+     with `--live-viz 8 --checkpoint`, and their artifacts.
 Phase 2 also holds attention and the assignment at the loop detector's
 shapes (2 candidates' 256-row keyframe databases against the 2048-keypoint
-frame, random database masks, one empty database).
+frame, random database masks, one empty database) and at the per-frame
+route's (one pair of 2048-keypoint sets; NMS of one map at radius 3 and of
+a Harris response at radius 4).
 The line before the last is the `kernels` JSON; the last line is the
 device JSON. Details go to chiprun_out/chip_smoke.json.
 """
@@ -105,6 +117,28 @@ def expected_launches(n_chunks):
             "assignment": ASSIGN_KERNELS_PER_CALL * (1 + n_chunks
                                                      + tracked * 2),
             "nms": 1 + n_chunks}
+
+
+# The per-frame route (phase 8): the command line's NMS radius (3) on the
+# learned detector, Harris's (4); the profiled run's depth.
+PF_NMS_RADIUS, HARRIS_RADIUS = 3, 4
+PF_PROFILE_FRAMES = 12
+ORACLE_FRAMES = 41                # the default route: --last-frame 40
+
+
+def expected_launches_per_frame(steps, n_kpts=N_KPTS, reobs_points=N_KPTS):
+    """Kernel launches of the per-frame learned route over a bootstrap and
+    `steps` tracked frames: two batch-1 extractions and one matcher pass at
+    the bootstrap; per step one extraction and three matcher passes (pass 1
+    and the two re-observation passes). A pass over two sets of equal size
+    makes 18 attention calls (9 layers x self + cross, the sets stacked),
+    of unequal size 36; the command line sets the re-observation sets to
+    min(kpts, 2048) points, the frame's size. One assignment call per
+    pass."""
+    reobs = 18 if reobs_points == n_kpts else 36
+    return {"attention": 18 + steps * (18 + 2 * reobs),
+            "assignment": ASSIGN_KERNELS_PER_CALL * (1 + 3 * steps),
+            "nms": 2 + steps}
 
 
 class Failure(Exception):
@@ -206,6 +240,12 @@ def attention_cases(torch, gen, dev):
             mask = torch.rand(Q, nk, generator=gen, device=dev) < 0.9
         cases.append((f"detect {Q}x{HEADS}x{nq}x{nk}", q, k, v,
                       mask.contiguous()))
+    # The per-frame route: every matcher pass is one pair of 2048-keypoint
+    # sets, stacked (2 sets x 2 heads), ragged masks.
+    q, k, v = needle_qkv(torch, rnd, (S,), N, N)
+    counts = torch.randint(N // 2, N + 1, (S,), generator=gen, device=dev)
+    mask = torch.arange(N, device=dev) < counts[:, None]
+    cases.append((f"per-frame {S}x{HEADS}x{N}x{N}", q, k, v, mask))
     return cases
 
 
@@ -285,7 +325,8 @@ def assignment_cases(torch, gen, dev):
     cases = []
     for name, B, N, M in (
             (f"prologue {CHUNK}x{N_KPTS}x{N_KPTS}", CHUNK, N_KPTS, N_KPTS),
-            (f"bootstrap 1x{N_KPTS}x{N_KPTS}", 1, N_KPTS, N_KPTS),
+            (f"bootstrap and per-frame 1x{N_KPTS}x{N_KPTS}", 1, N_KPTS,
+             N_KPTS),
             (f"reobs 1x{M_REOBS}x{N_KPTS}", 1, M_REOBS, N_KPTS),
             (f"detect {LOOP_CANDS}x{LOOP_DB}x{N_KPTS}", LOOP_CANDS, LOOP_DB,
              N_KPTS)):
@@ -386,49 +427,63 @@ def check_assignment(torch, gen, dev, report):
 
 
 def nms_cases(torch, gen, dev, cfg, sp, stack):
-    """(name, heat (B, 376, 1248) f32) at the two batch sizes the tracker
-    extracts at (8 per chunk, 2 at the bootstrap): a quantised random map
-    (ties everywhere) with exact zeros, plateaus that touch the image border
-    and plateaus across every column-strip and row-segment corner of the
-    kernel's plan, with equal isolated maxima r apart across those borders;
-    and the flagship detector's own heatmap of rendered frames."""
+    """(name, heat (B, H, W) f32, radius) at the batch sizes the tracker
+    extracts at (8 per chunk and 2 at the bootstrap, 376 x 1248, r 4; 1 on
+    the per-frame route at the command line's r 3; Harris's response of
+    one 376 x 1241 frame at r 4): a quantised random map (ties everywhere)
+    with exact zeros, plateaus that touch the image border and plateaus
+    across every column-strip and row-segment corner of the kernel's plan,
+    with equal isolated maxima r apart across those borders; and the
+    flagship detector's own heatmap of rendered frames, or the Harris
+    response of a rendered frame with its border zeroed as
+    HarrisExtractor does."""
+    from gl_slam_tpu_torch.models import classical
     from gl_slam_tpu_torch.ops import nms as NM
     from gl_slam_tpu_torch.slam import fused
-    H8 = cfg.frontend.image_height + (-cfg.frontend.image_height) % 8
-    W8 = cfg.frontend.image_width + (-cfg.frontend.image_width) % 8
-    r = NMS_RADIUS
+    H = cfg.frontend.image_height
+    W = cfg.frontend.image_width
+    H8, W8 = H + (-H) % 8, W + (-W) % 8
     cases = []
-    for B in (CHUNK, 2):
-        heat = torch.rand(B, H8, W8, generator=gen, device=dev)
+    for B, r, Hc, Wc in ((CHUNK, NMS_RADIUS, H8, W8), (2, NMS_RADIUS, H8, W8),
+                         (1, PF_NMS_RADIUS, H8, W8), (1, HARRIS_RADIUS, H, W)):
+        heat = torch.rand(B, Hc, Wc, generator=gen, device=dev)
         heat = torch.round(heat * 64) / 64
-        heat[torch.rand(B, H8, W8, generator=gen, device=dev) < 0.3] = 0.0
-        plan = NM.nms_plan(B, H8, W8, r)
-        for x in range(plan["strip_cols"], W8, plan["strip_cols"]):
-            heat[:, 2, x - 1] = heat[:, 2, min(x - 1 + r, W8 - 1)] = 1.995
-            for y in range(plan["seg_rows"], H8, plan["seg_rows"]):
+        heat[torch.rand(B, Hc, Wc, generator=gen, device=dev) < 0.3] = 0.0
+        plan = NM.nms_plan(B, Hc, Wc, r)
+        for x in range(plan["strip_cols"], Wc, plan["strip_cols"]):
+            heat[:, 2, x - 1] = heat[:, 2, min(x - 1 + r, Wc - 1)] = 1.995
+            for y in range(plan["seg_rows"], Hc, plan["seg_rows"]):
                 heat[:, y - 2:y + 2, x - 3:x + 3] = 1.97   # across a corner
-        for y in range(plan["seg_rows"], H8, plan["seg_rows"]):
-            heat[:, y - 1, 5] = heat[:, min(y - 1 + r, H8 - 1), 7] = 1.993
+        for y in range(plan["seg_rows"], Hc, plan["seg_rows"]):
+            heat[:, y - 1, 5] = heat[:, min(y - 1 + r, Hc - 1), 7] = 1.993
         heat[0, 120:136, 600:700] = 1.98       # across several strips
         heat[0, :5, :7] = 1.99                 # image corner
-        heat[-1, H8 - 3:, W8 - 40:] = 1.98     # bottom-right border
-        heat[-1, H8 // 2, :] = 1.96            # a full row
+        heat[-1, Hc - 3:, Wc - 40:] = 1.98     # bottom-right border
+        heat[-1, Hc // 2, :] = 1.96            # a full row
         heat[-1, :, 64] = 1.95                 # a full column
-        cases.append((f"random {B}x{H8}x{W8}", heat.contiguous()))
+        tag = f"{B}x{Hc}x{Wc} r{r}"
+        cases.append((f"random {tag}", heat.contiguous(), r))
+        img = torch.from_numpy(stack[:B]).to(dev)
         with torch.no_grad():
-            real, _ = fused.detector_heatmap(
-                cfg, sp, torch.from_numpy(stack[:B]).to(dev))
-        cases.append((f"detector {B}x{H8}x{W8}", real.contiguous()))
+            if Wc == W:                        # Harris on the frame itself
+                real = classical.harris_response(img)
+                b = 8                          # HarrisExtractor's patch
+                real[:, :b], real[:, H - b:] = 0.0, 0.0
+                real[:, :, :b], real[:, :, W - b:] = 0.0, 0.0
+                cases.append((f"harris {tag}", real.contiguous(), r))
+            else:
+                real, _ = fused.detector_heatmap(cfg, sp, img)
+                cases.append((f"detector {tag}", real.contiguous(), r))
     return cases
 
 
 def check_nms(torch, gen, dev, report, cfg, sp, stack):
     from gl_slam_tpu_torch.ops import nms as NM
     F = torch.nn.functional
-    r, k = NMS_RADIUS, 2 * NMS_RADIUS + 1
     fr = cfg.frontend
     worst = 0.0
-    for name, heat in nms_cases(torch, gen, dev, cfg, sp, stack):
+    for name, heat, r in nms_cases(torch, gen, dev, cfg, sp, stack):
+        k = 2 * r + 1
         out = NM.nms_cuda(heat, r)
         ref = NM.nms_plain(heat, r)
         torch.cuda.synchronize()
@@ -456,7 +511,7 @@ def check_nms(torch, gen, dev, report, cfg, sp, stack):
         nbytes = 2 * 4 * heat.numel()
         plan = NM.nms_plan(B, H, W, r)
         row = dict(
-            shape=name, max_abs_err=err, plan=plan,
+            shape=name, radius=r, max_abs_err=err, plan=plan,
             pixels_differing=n_diff, survivors=survivors,
             keypoints=int(got[2].sum()),
             ms=time_ms(lambda: NM.nms_cuda(heat, r)),
@@ -480,7 +535,7 @@ def check_nms(torch, gen, dev, report, cfg, sp, stack):
 # Phase 3: the flagship-width slice
 
 STAGES = ("extract", "extract.nms", "prologue.match", "prologue.subpix",
-          "prologue.essential",
+          "prologue.essential", "track.match", "track.essential",
           "track.reobserve_window", "track.reobserve_covis", "track.pose_lm",
           "track.insert_keyframe", "backend.ba", "backend.recycle")
 OWN_KERNELS = {"attention": ("attention_kernel",),
@@ -495,7 +550,10 @@ def profile_run(torch, once):
     and count of the device activities (kernels and copies), host time per
     pipeline stage from the stage markers, and the kernels with the most
     device time. The profiler slows the host, so stage times are read as
-    shares of the profiled wall time."""
+    shares of the profiled wall time. The profiler's raw records are read
+    directly (`kineto_results.events()`), without building the Python
+    event tree of `prof.events()`, which is slow at the 10^5-10^6 records
+    of a run."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -503,33 +561,35 @@ def profile_run(torch, once):
         once()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
     busy_us, n_kernels, by_name, launches = 0.0, 0, {}, 0
     stages, ba_ranges, syncs = {}, [], []
-    for e in prof.events():
-        us = e.time_range.elapsed_us()
-        if e.is_user_annotation:
-            if e.name not in STAGES:
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.is_user_annotation():
+            if name not in STAGES:
                 continue
-            st = stages.setdefault(e.name, dict(host_ms=0.0, calls=0,
-                                                device_span_ms=0.0))
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.duration_ns() / 1e3
+            st = stages.setdefault(name, dict(host_ms=0.0, calls=0,
+                                              device_span_ms=0.0))
+            if e.device_type() == cuda:
                 # first kernel start to last kernel end inside the range
                 st["device_span_ms"] += us / 1e3
             else:
                 st["host_ms"] += us / 1e3
                 st["calls"] += 1
-                if e.name == "backend.ba":
-                    ba_ranges.append((e.time_range.start, e.time_range.end))
-        elif e.name in SYNC_CALLS:
-            syncs.append(e.time_range.start)
-        elif e.device_type == torch.autograd.DeviceType.CUDA:
+                if name == "backend.ba":
+                    ba_ranges.append((e.start_ns(), e.end_ns()))
+        elif name in SYNC_CALLS:
+            syncs.append(e.start_ns())
+        elif e.device_type() == cuda:
+            us = e.duration_ns() / 1e3
             busy_us += us
             n_kernels += 1
-            name = e.name[:90]
-            t, c = by_name.get(name, (0.0, 0))
-            by_name[name] = (t + us, c + 1)
-        elif e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                        "cudaLaunchKernelExC"):
+            t, c = by_name.get(name[:90], (0.0, 0))
+            by_name[name[:90]] = (t + us, c + 1)
+        elif name in ("cudaLaunchKernel", "cuLaunchKernel",
+                      "cudaLaunchKernelExC"):
             launches += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     # Device time of the hand-written kernels, by the names in csrc/.
@@ -556,7 +616,8 @@ def profile_run(torch, once):
     print(f"    host synchronisations: {len(syncs)} in the run, {ba_syncs} "
           f"inside BA passes")
     print("    hand-written kernels: " + ", ".join(
-        f"{k} {v:.2f} ms ({100 * v / (busy_us / 1e3):.1f} % of busy)"
+        f"{k} {v:.2f} ms ({100 * v / max(busy_us / 1e3, 1e-9):.1f} % of "
+        "busy)"
         for k, v in own.items()))
     for k in STAGES:
         if k in stages:
@@ -883,12 +944,12 @@ def run_done(torch, dev, details):
 
 
 def run_cli(torch, dev, details):
-    """This slice's path, through the entry point a user calls:
+    """The chunked route through the entry point a user calls:
     `gl_slam_tpu_torch.cli.main(["run", ...])` on the card (no --device)
-    over a KITTI-layout directory of 8-bit PNG frames. The launch counts
-    exclude the warm-up chunk (ChunkedPipeline.warmup, wrapped here to
-    count its launches and to keep the pipeline for the per-frame
-    outputs)."""
+    over a KITTI-layout directory of 8-bit PNG frames, which it writes
+    and returns (phase 8 reads it too). The launch counts exclude the
+    warm-up chunk (ChunkedPipeline.warmup, wrapped here to count its
+    launches and to keep the pipeline for the per-frame outputs)."""
     import contextlib
     import io
     import shutil
@@ -1004,7 +1065,179 @@ def run_cli(torch, dev, details):
         png_write_s=write_s, phase_wall_s=wall,
         num_matches=o.num_matches.tolist(),
         frame_ok=o.frame_ok.tolist())
-    shutil.rmtree(data)                # keep what comes back small
+    return data
+
+
+def run_cli_capture(torch, argv):
+    """`cli.main(argv)` on the card with its report captured, the launch
+    counters set to 0 just before and read just after ->
+    (report, TrackingPipeline, launches, wall s)."""
+    import contextlib
+    import io
+
+    from gl_slam_tpu_torch import cli
+    from gl_slam_tpu_torch.ops import _build
+    from gl_slam_tpu_torch.slam.pipeline import TrackingPipeline
+
+    seen = {}
+    finish = TrackingPipeline.finish
+
+    def keep(self):
+        seen["pipe"] = self
+        finish(self)
+
+    stdout = io.StringIO()
+    TrackingPipeline.finish = keep
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(stdout):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        TrackingPipeline.finish = finish
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check(rc == 0, f"{' '.join(argv[:4])}: exit code {rc}")
+    return json.loads(stdout.getvalue()), seen["pipe"], launches, wall
+
+
+def check_per_frame_artifacts(out, report, what, steps):
+    """trajectory.txt (one row per keyframe), metrics.jsonl (one row per
+    tracked step), map.json, the live snapshot and the state checkpoint
+    (its keyframe count) -> the names present."""
+    import numpy as np
+    n = report["frames_tracked"]
+    traj = np.loadtxt(os.path.join(out, "trajectory.txt")).reshape(-1, 12)
+    check(traj.shape == (n, 12) and np.isfinite(traj).all(),
+          f"{what}: trajectory.txt has shape {traj.shape}")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        rows = f.read().splitlines()
+    check(len(rows) == steps, f"{what}: {len(rows)} metrics rows, expected "
+          f"{steps}")
+    with open(os.path.join(out, "map.json")) as f:
+        check(len(json.load(f)["keyframe_centers"]) == n,
+              f"{what}: map.json keyframes")
+    with open(os.path.join(out, "live", "live.json")) as f:
+        check(len(json.load(f)["keyframe_centers"]) >= 2,
+              f"{what}: live.json holds no trajectory")
+    with np.load(os.path.join(out, "ckpt", "state.npz")) as z:
+        check(int(z["map.num_kf"]) == n,
+              f"{what}: the checkpoint holds {int(z['map.num_kf'])} "
+              f"keyframes, expected {n}")
+    return sorted(os.listdir(out)) + sorted(
+        os.path.join("live", f) for f in os.listdir(os.path.join(out,
+                                                                 "live")))
+
+
+def run_per_frame(torch, details, data):
+    """This slice's path, the command line's per-frame route, on phase 7's
+    KITTI layout: `--frontend superpoint --per-frame --preset flagship`
+    counted and unprofiled, then profiled over its first
+    PF_PROFILE_FRAMES frames; then `--frontend harris` at full width (its
+    patch descriptors are 64-d) and the default oracle route, each with
+    `--live-viz 8 --checkpoint`. Returns the learned run's launches."""
+    import shutil
+
+    import numpy as np
+
+    ckpt = os.path.join(ROOT, "checkpoints")
+    outs = {k: os.path.join(ROOT, "chiprun_out", f"pf_{k}")
+            for k in ("superpoint", "profile", "harris", "oracle")}
+    for d in outs.values():
+        shutil.rmtree(d, ignore_errors=True)
+
+    def argv(kind, last, *extra):
+        return ["run", "--dataset", data, "--weights", ckpt,
+                "--first-frame", "0", "--last-frame", str(last),
+                "--out", outs[kind], *extra]
+
+    learned = ("--frontend", "superpoint", "--per-frame", "--preset",
+               "flagship")
+    report, pipe, launches, wall = run_cli_capture(
+        torch, argv("superpoint", CLI_FRAMES - 1, *learned))
+    gated = report["frames_gated"]
+    steps = CLI_FRAMES - 2 - gated
+    want = expected_launches_per_frame(steps)
+    o = pipe.stacked_outputs()
+    matches = float(o.num_matches[1:].mean())
+    inliers = float(o.num_inliers[1:].mean())
+    print(f"  superpoint --per-frame: report {json.dumps(report)}",
+          flush=True)
+    print(f"  frames tracked {report['frames_tracked']} of {CLI_FRAMES} "
+          f"({gated} gated), rejected {int((~o.frame_ok).sum())}; mean "
+          f"matches {matches:.1f}, inliers {inliers:.1f}; ATE "
+          f"{report['ate_rmse_m']} m; BA runs {report['map']['num_ba_runs']}"
+          f" recoveries {pipe.num_recoveries}; fps_incl_features "
+          f"{report['fps_incl_features']}; launches {launches} (expected "
+          f"{want}); phase run {wall:.1f} s", flush=True)
+    check(report["frames_tracked"] == CLI_FRAMES - gated,
+          f"per-frame route: {report['frames_tracked']} frames tracked of "
+          f"{CLI_FRAMES - gated} not gated")
+    check(np.isfinite(o.R).all() and np.isfinite(o.t).all(),
+          "per-frame route: non-finite pose")
+    check(report["ate_rmse_m"] <= 1.0,
+          f"per-frame route: ATE {report['ate_rmse_m']} m > 1 m")
+    check(pipe.num_recoveries == 0,
+          f"per-frame route: {pipe.num_recoveries} recoveries")
+    check(matches > 100, f"per-frame route: mean matches {matches}")
+    check(launches == want,
+          f"per-frame route: launch counts {launches} != {want}")
+    for f in ("trajectory.txt", "metrics.jsonl", "map.json"):
+        check(os.path.exists(os.path.join(outs["superpoint"], f)),
+              f"per-frame route: no {f}")
+
+    prof = profile_run(torch, lambda: run_cli_capture(
+        torch, argv("profile", PF_PROFILE_FRAMES - 1, *learned)))
+    match_calls = prof["stages"].get("track.match", {}).get("calls")
+    check(match_calls == PF_PROFILE_FRAMES - 1,
+          f"per-frame profile: {match_calls} track.match markers, expected "
+          f"{PF_PROFILE_FRAMES - 1}")
+
+    runs = {}
+    for kind, args in (
+            ("harris", argv("harris", CLI_FRAMES - 1, "--frontend", "harris",
+                            "--preset", "flagship", "--desc-dim", "64",
+                            "--live-viz", "8", "--checkpoint")),
+            ("oracle", ["run", "--weights", ckpt, "--out", outs["oracle"],
+                        "--live-viz", "8", "--checkpoint"])):
+        rep, p, lc, w = run_cli_capture(torch, args)
+        n_frames = CLI_FRAMES if kind == "harris" else ORACLE_FRAMES
+        st = n_frames - 2 - rep["frames_gated"]
+        # Harris extracts once per frame through the NMS kernel (r 4); the
+        # oracle launches no kernel; mutual NN matches both
+        want_k = {"attention": 0, "assignment": 0,
+                  "nms": st + 2 if kind == "harris" else 0}
+        files = check_per_frame_artifacts(outs[kind], rep, kind, st)
+        print(f"  {kind}: frames tracked {rep['frames_tracked']} of "
+              f"{n_frames} ({rep['frames_gated']} gated); ATE "
+              f"{rep['ate_rmse_m']} m (aligned {rep['ate_rmse_aligned_m']} "
+              f"m); BA runs {rep['map']['num_ba_runs']} recoveries "
+              f"{p.num_recoveries}; fps_incl_features "
+              f"{rep['fps_incl_features']}; launches {lc} (expected "
+              f"{want_k}); {w:.1f} s; artifacts {files}", flush=True)
+        check(lc == want_k, f"{kind}: launch counts {lc} != {want_k}")
+        check(p.num_recoveries == 0, f"{kind}: {p.num_recoveries} recoveries")
+        if kind == "oracle":
+            check(rep["frames_tracked"] == n_frames,
+                  f"oracle: {rep['frames_tracked']} of {n_frames} tracked")
+            check(rep["ate_rmse_m"] <= 1.0,
+                  f"oracle: ATE {rep['ate_rmse_m']} m > 1 m")
+        runs[kind] = dict(report=rep, launches=lc, expected_launches=want_k,
+                          recoveries=p.num_recoveries, wall_s=w,
+                          artifacts=files)
+    details["per_frame"] = dict(
+        config=f"gl-slam-tpu-torch {' '.join(argv('superpoint', 0)[:2])} "
+               f"<phase 7's layout> {' '.join(learned)} --first-frame 0 "
+               f"--last-frame {CLI_FRAMES - 1}",
+        report=report, mean_matches=matches, mean_inliers=inliers,
+        num_recoveries=pipe.num_recoveries, launches=launches,
+        expected_launches=want, wall_s=wall, profile=prof,
+        profile_frames=PF_PROFILE_FRAMES,
+        num_matches=o.num_matches.tolist(),
+        frame_ok=o.frame_ok.tolist(), **runs)
+    for d in outs.values():            # the checkpoints: keep what comes
+        shutil.rmtree(d, ignore_errors=True)     # back small
     return launches
 
 
@@ -1072,23 +1305,29 @@ def main() -> int:
         print(f"phase 7: the command line on a KITTI-layout directory, "
               f"flagship preset, single-view head, padded tail chunk "
               f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
-        launches = run_cli(torch, dev, details)
+        data = run_cli(torch, dev, details)
+        print(f"phase 8: the command line's per-frame route on the same "
+              f"directory: superpoint --per-frame (flagship), Harris, "
+              f"oracle [{time.perf_counter() - t_start:.0f} s]", flush=True)
+        launches = run_per_frame(torch, details, data)
         details["wall_s"] = time.perf_counter() - t_start
         print(f"all phases passed [{details['wall_s']:.0f} s]", flush=True)
 
         kernels = []
-        for name, rows, err, src, replaces in (
+        for name, rows, err, src, replaces, shape in (
                 ("attention", attn_rows, attn_err,
                  "gl_slam_tpu_torch/csrc/attention.cu",
-                 "gl_slam_tpu/ops/attention.py:68"),
+                 "gl_slam_tpu/ops/attention.py:68", "per-frame "),
                 ("assignment", asg_rows, asg_err,
                  "gl_slam_tpu_torch/csrc/assignment.cu",
-                 "gl_slam_tpu/ops/assignment.py:128"),
-                ("nms", nms_rows[1:], nms_err,
+                 "gl_slam_tpu/ops/assignment.py:128", "bootstrap and "
+                 "per-frame "),
+                ("nms", nms_rows, nms_err,
                  "gl_slam_tpu_torch/csrc/nms.cu",
-                 "gl_slam_tpu/ops/nms.py:86")):
-            # the prologue shape; for nms the detector's heatmaps of a chunk
-            head = rows[0]
+                 "gl_slam_tpu/ops/nms.py:86", "detector 1x")):
+            # the shape of this path (phase 8): one pair per matcher pass,
+            # the learned detector's map of one frame at radius 3
+            head = next(r for r in rows if r["shape"].startswith(shape))
             kernels.append(dict(
                 name=name, route="cuda", source=src, replaces=replaces,
                 launches=launches[name], max_abs_err=err, ms=head["ms"],
@@ -1096,12 +1335,16 @@ def main() -> int:
                 bound_by=head["bound_by"], library_ms=head["library_ms"]))
         details["kernels"] = kernels
     except Failure as e:
+        import shutil
+        shutil.rmtree(os.path.join(out_dir, "kitti_cli"), ignore_errors=True)
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
             json.dump(dict(details, failure=str(e)), f, indent=1)
         return 1
-    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump(details, f, indent=1)
+    import shutil
+    shutil.rmtree(os.path.join(out_dir, "kitti_cli"))   # keep what comes
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:  # back
+        json.dump(details, f, indent=1)                            # small
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

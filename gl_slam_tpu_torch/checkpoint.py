@@ -12,7 +12,8 @@ reads them with numpy alone and turns them into the port's `state_dict`s:
     params) share the parameter tree of the per-set calls, so one
     `self_attn` / `cross_attn` entry serves both GlueLayer paths.
 
-It also writes and reads trajectories as KITTI pose rows.
+It also saves and restores a tracking state (`save_state` /
+`load_state`) and writes and reads trajectories as KITTI pose rows.
 """
 
 from __future__ import annotations
@@ -136,6 +137,83 @@ def load_module(module: torch.nn.Module, path_or_flat, convert) -> None:
             raise ValueError(f"{k}: checkpoint shape {tuple(v.shape)} != "
                              f"module shape {tuple(own[k].shape)}")
     module.load_state_dict(sd, strict=True)
+
+
+STATE_FILE = "state.npz"
+
+
+def _flatten_state(state, prefix: str = "") -> dict:
+    """{dotted field name: tensor or None} of a NamedTuple of tensors,
+    nested NamedTuples (the TrackState's map) flattened."""
+    out = {}
+    for name, v in state._asdict().items():
+        if hasattr(v, "_asdict"):
+            out.update(_flatten_state(v, f"{prefix}{name}."))
+        else:
+            out[prefix + name] = v
+    return out
+
+
+def save_state(path: str, state) -> None:
+    """Save a TrackState or MapState to `<path>/state.npz`: one array per
+    field (dotted names for the nested map), bfloat16 fields as their raw
+    16-bit patterns, and the dtype of each field, so `load_state` restores
+    it bit for bit. Fields that are None are not stored."""
+    os.makedirs(path, exist_ok=True)
+    arrays, dtypes = {}, []
+    for name, v in _flatten_state(state).items():
+        if v is None:
+            continue
+        t = v.detach().cpu()
+        dtypes.append(f"{name}:{str(t.dtype).removeprefix('torch.')}")
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        arrays[name] = t.numpy()
+    # compressed: a fixed-capacity state is mostly empty rows
+    np.savez_compressed(os.path.join(path, STATE_FILE),
+                        __dtypes__=np.array(dtypes), **arrays)
+
+
+def load_state(path: str, like):
+    """Restore a state saved by `save_state` from directory `path`. `like`
+    (a state of the same type and capacities, e.g. a fresh
+    `frontend.init_track_state`) gives the structure, the shapes, the
+    dtypes and the device; a missing, extra or differently shaped or typed
+    field raises. The JAX package's orbax checkpoint directories are not
+    read."""
+    with np.load(os.path.join(path, STATE_FILE)) as data:
+        stored = dict(s.split(":") for s in data["__dtypes__"].tolist())
+        want = _flatten_state(like)
+        have = {n for n, v in want.items() if v is not None}
+        if set(stored) != have:
+            raise ValueError(
+                f"state fields differ: missing {sorted(have - set(stored))}, "
+                f"unexpected {sorted(set(stored) - have)}")
+        values = {}
+        for name in have:
+            ref = want[name]
+            dtype = str(ref.dtype).removeprefix("torch.")
+            if stored[name] != dtype:
+                raise ValueError(f"{name}: stored dtype {stored[name]} != "
+                                 f"{dtype}")
+            t = torch.from_numpy(np.array(data[name]))
+            if ref.dtype == torch.bfloat16:
+                t = t.view(torch.bfloat16)
+            if tuple(t.shape) != tuple(ref.shape):
+                raise ValueError(f"{name}: stored shape {tuple(t.shape)} != "
+                                 f"{tuple(ref.shape)}")
+            values[name] = t.to(ref.device)
+
+    def build(tmpl, prefix=""):
+        kw = {}
+        for name, v in tmpl._asdict().items():
+            if hasattr(v, "_asdict"):
+                kw[name] = build(v, f"{prefix}{name}.")
+            else:
+                kw[name] = values.get(prefix + name)
+        return type(tmpl)(**kw)
+
+    return build(like)
 
 
 def export_kitti_trajectory(path: str, R: np.ndarray, t: np.ndarray) -> None:

@@ -1,23 +1,33 @@
 """Command-line entry point of the port: `gl-slam-tpu-torch run`.
 
-Counterpart of gl_slam_tpu/cli.py on its chunked learned route
-(`--frontend superpoint`, the default sub-pixel mode pair): read a KITTI or
-EuRoC directory (or render the built-in synthetic sequence), bootstrap on
-the first two frames, track the rest in chunks through
-`slam/chunk_driver.ChunkedPipeline` (a partial tail chunk padded with
-copies of its last real frame and gated off), then write `trajectory.txt`
-(KITTI rows), `map.json` and `trajectory.png` (where matplotlib is
-installed) to `--out` and print one JSON report with ATE. Every flag of the
-JAX CLI's `run` keeps its default, and one more, `--device`, selects the
-card (default) or the CPU:
+Counterpart of gl_slam_tpu/cli.py: read a KITTI or EuRoC directory (or
+render the built-in synthetic sequence), bootstrap on the first two frames,
+track the rest, then write `trajectory.txt` (KITTI rows), `map.json` and
+`trajectory.png` (where matplotlib is installed) to `--out` and print one
+JSON report with ATE. Every flag of the JAX CLI's `run` keeps its default,
+and one more, `--device`, selects the card (default) or the CPU.
+
+Two routes, as in the JAX CLI:
+
+  * chunked (`--frontend superpoint`): the learned tracker in chunks
+    through `slam/chunk_driver.ChunkedPipeline` (a partial tail chunk
+    padded with copies of its last real frame and gated off);
+  * per-frame (`--frontend oracle`, the default, on the synthetic
+    sequence; `--frontend harris`; `--frontend superpoint --per-frame`):
+    one frame at a time through `slam/pipeline.TrackingPipeline`, frames
+    the ground-truth motion gate finds static skipped, with
+    `metrics.jsonl`, `--live-viz N` (`<out>/live/live.json`, and
+    `live.png` where matplotlib is installed) and `--checkpoint`
+    (`<out>/ckpt/state.npz`).
 
     gl-slam-tpu-torch run --dataset <KITTI root> --frontend superpoint \\
         --preset flagship --first-frame 0 --last-frame 30
+    gl-slam-tpu-torch run --dataset <EuRoC dir> --frontend harris
 
-The per-frame route (`--frontend oracle|harris`, `--per-frame`) is not
-ported yet and raises; see ROADMAP.md.
+The per-frame route's configuration takes the tracker options the port
+has: the PnP tracker, the merged and batched re-observation modes and
+motion-gated keyframing are not ported yet and raise (see ROADMAP.md).
 """
-
 from __future__ import annotations
 
 import argparse
@@ -163,14 +173,194 @@ def _run_chunked(args) -> int:
     return 0
 
 
+def _build_config(args, reobs_matcher: str):
+    """The per-frame route's configuration, from the flags."""
+    from .config import (BAConfig, FrontendConfig, GeometryConfig, MapConfig,
+                         RuntimeConfig, SLAMConfig)
+    return SLAMConfig(
+        frontend=FrontendConfig(
+            image_height=args.height, image_width=args.width,
+            max_keypoints=args.kpts, descriptor_dim=args.desc_dim,
+            match_threshold=args.match_thr,
+            map_match_threshold=args.match_thr,
+            score_threshold=args.score_thr, nms_radius=args.nms_radius,
+            reobs_matcher=reobs_matcher),
+        geometry=GeometryConfig(
+            essential_hypotheses=args.hypotheses,
+            essential_threshold_px=args.essential_thr,
+            triangulation_reproj_px=args.tri_thr,
+            triangulation_reproj_bootstrap_px=max(args.tri_thr, 0.5),
+            max_depth=args.max_depth),
+        ba=BAConfig(max_window_cameras=16, max_window_points=args.ba_points,
+                    full_ba_iters=args.ba_iters,
+                    pose_only_iters=args.pose_iters, full_ba_overlap=4),
+        map=MapConfig(max_keyframes=args.max_keyframes,
+                      max_points=args.max_points,
+                      covis_max_points=min(args.kpts, 2048),
+                      covis_edge_threshold=args.covis_thr,
+                      cull_enabled=not args.no_cull),
+        runtime=RuntimeConfig(use_gt_scale=not args.no_gt_scale,
+                              use_gt_motion_gate=not args.no_gt_gate,
+                              ba_trigger_keyframes=args.ba_trigger,
+                              async_ba=not args.sync_ba),
+    )
+
+
+def _per_frame_features(args, cfg, src, frame_fn, dev):
+    """(features(i) -> (kpts, desc, valid), matcher or None) of the
+    per-frame front end: the oracle's projected landmarks (synthetic
+    sequence only), Harris corners with patch descriptors, or the learned
+    extractor at batch 1 (SuperPointNet, NMS, centroid refinement,
+    descriptor sampling) with LightGlue and the fused assignment as the
+    matcher of all three passes."""
+    import torch
+    from torch.profiler import record_function
+
+    from .device import upload
+
+    def image(i):
+        return upload(np.asarray(frame_fn(i), dtype=np.float32),
+                      torch.float32, dev)
+
+    if args.frontend == "oracle":
+        if args.dataset != "synthetic":
+            raise SystemExit("--frontend oracle needs --dataset synthetic")
+        from .io import synthetic
+
+        def features(i):
+            o = synthetic.observe_frame(src, i, max_keypoints=args.kpts,
+                                        noise_px=args.noise, seed=13)
+            return o.keypoints, o.descriptors, o.valid
+        return features, None
+    if args.frontend == "harris":
+        from .models.classical import HarrisExtractor
+        ex = HarrisExtractor(args.height, args.width,
+                             max_keypoints=args.kpts)
+
+        def features(i):
+            kpts, _, desc, valid = ex(image(i)[None])
+            return kpts[0], desc[0], valid[0]
+        return features, None
+    from .slam import fused
+    from .train import e2e
+    load = e2e.load_flagship_frontend if args.preset == "flagship" \
+        else e2e.load_tiny_frontend
+    sp, lg = load(args.weights, device=dev)
+    extract = fused.build_extract_fn(cfg, sp)
+
+    @torch.no_grad()
+    def features(i):
+        with record_function("extract"):
+            kpts, desc, valid = extract(image(i)[None])
+        return kpts[0], desc[0], valid[0]
+    return features, fused.build_matcher(cfg, lg)
+
+
+def _run_per_frame(args) -> int:
+    """The per-frame route: the bootstrap on the first two frames, then one
+    `TrackingPipeline.step` per frame the ground-truth motion gate lets
+    through. The report has the keys of the JAX CLI's per-frame report:
+    `frames_tracked` counts the trajectory's rows (keyframes),
+    `frames_gated` the frames the gate skipped, `fps_incl_features` the
+    keyframes over the host wall time of the whole run, feature extraction
+    included."""
+    from . import metrics as metrics_mod
+    from .checkpoint import export_kitti_trajectory, save_state
+    from .device import resolve_device
+    from .slam.pipeline import TrackingPipeline
+    from .tracing import MetricsRecorder, StageTimer
+    from .viz.viewer import LiveViewer, MapSnapshot, render_topdown
+
+    dev = resolve_device(args.device)
+    reobs = "lightglue" if args.frontend == "superpoint" else "mutual_nn"
+    cfg = _build_config(args, reobs)
+    src, K, gt_R, gt_t, frame_fn, gate_fn = _open_dataset(args)
+    features, matcher = _per_frame_features(args, cfg, src, frame_fn, dev)
+    os.makedirs(args.out, exist_ok=True)
+
+    pipe = TrackingPipeline(cfg, K, matcher=matcher, device=dev)
+    rec = MetricsRecorder()
+    timer = StageTimer()
+    live = None
+    if args.live_viz > 0:
+        live = LiveViewer(os.path.join(args.out, "live"),
+                          every=args.live_viz)
+
+    first, last = args.first_frame, args.last_frame
+    gt_scale = 1.0
+    if gt_R is not None and cfg.runtime.use_gt_scale:
+        c0 = -gt_R[first].T @ gt_t[first]
+        c1 = -gt_R[first + 1].T @ gt_t[first + 1]
+        gt_scale = float(np.linalg.norm(c1 - c0))
+
+    t_start = time.time()
+    f0, f1 = features(first), features(first + 1)
+    with timer.stage("bootstrap"):
+        pipe.bootstrap((*f0, first), (*f1, first + 1), gt_scale=gt_scale)
+    prev_idx = first + 1
+    n_gated = 0
+    steps = []
+    for i in range(first + 2, last + 1):
+        # ground-truth motion gate: skip near-static frames
+        if (cfg.runtime.use_gt_motion_gate and gate_fn is not None
+                and gt_R is not None
+                and gate_fn(prev_idx, i, cfg.runtime.gt_mag_filter,
+                            cfg.runtime.gt_rot_filter)):
+            n_gated += 1
+            continue
+        prev_idx = i
+        with timer.stage("features"):
+            f = features(i)
+        with timer.stage("track"):
+            steps.append((i, pipe.step(*f, i)))
+        if live is not None:
+            live.update(pipe.state.map, i)
+    pipe.finish()
+    if live is not None:
+        live.close()
+    elapsed = time.time() - t_start
+
+    for i, out in steps:
+        rec.record(i, num_matches=out.num_matches,
+                   num_map_matches=out.num_map_matches,
+                   num_new_points=out.num_new_points)
+    R, t, fidx = pipe.trajectory()
+    export_kitti_trajectory(os.path.join(args.out, "trajectory.txt"), R, t)
+    rec.to_jsonl(os.path.join(args.out, "metrics.jsonl"))
+    snap = MapSnapshot(pipe.state.map)
+    snap.to_json(os.path.join(args.out, "map.json"))
+
+    report = {
+        "frontend": args.frontend,
+        "frames_tracked": int(len(R)),
+        "frames_gated": n_gated,
+        "fps_incl_features": round(len(R) / elapsed, 2),
+        "map": pipe.map_stats(),
+        "stages": timer.summary(),
+    }
+    c_gt = None
+    if gt_R is not None:
+        errs = metrics_mod.per_frame_pose_errors(R, t, gt_R[fidx],
+                                                 gt_t[fidx])
+        c_est = metrics_mod.camera_centers(R, t)
+        c_gt = metrics_mod.camera_centers(gt_R[fidx], gt_t[fidx])
+        report["ate_rmse_m"] = round(
+            metrics_mod.ate_rmse(c_est, c_gt, align=False), 4)
+        report["ate_rmse_aligned_m"] = round(
+            metrics_mod.ate_rmse(c_est, c_gt, align=True), 4)
+        report["rot_err_deg_max"] = round(float(errs.rot_deg.max()), 4)
+    render_topdown(snap, os.path.join(args.out, "trajectory.png"),
+                   gt_centers=c_gt)
+    if args.checkpoint:
+        save_state(os.path.join(args.out, "ckpt"), pipe.state)
+    print(json.dumps(report, indent=2))
+    return 0
+
+
 def cmd_run(args) -> int:
     if args.frontend == "superpoint" and not args.per_frame:
         return _run_chunked(args)
-    raise NotImplementedError(
-        f"the per-frame route (--frontend {args.frontend}"
-        f"{', --per-frame' if args.per_frame else ''}) is not ported yet; "
-        "only the chunked learned route (--frontend superpoint) is; see "
-        "ROADMAP.md")
+    return _run_per_frame(args)
 
 
 def main(argv=None) -> int:
@@ -224,8 +414,7 @@ def main(argv=None) -> int:
                           "frames (0 = off)")
     run.add_argument("--per-frame", action="store_true",
                      help="superpoint front-end: use the per-frame "
-                          "TrackingPipeline instead of the chunked route "
-                          "(not ported yet)")
+                          "TrackingPipeline instead of the chunked route")
     run.add_argument("--chunk", type=int, default=8,
                      help="frames per chunk (chunked route)")
     run.add_argument("--ba-every", type=int, default=8,

@@ -7,6 +7,7 @@ the CPU (tests pass `device="cpu"` explicitly).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .ops.precision import set_full_f32
@@ -26,3 +27,15 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda":
         set_full_f32()
     return dev
+
+
+def upload(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A host array or a tensor as `dtype` on `device`. Host arrays bound
+    for a card go through pinned memory, so the copy does not make the host
+    wait for the work already queued on the stream."""
+    if torch.is_tensor(a):
+        return a.to(device, dtype)
+    t = torch.from_numpy(np.require(a, requirements=("C", "W"))).to(dtype)
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)

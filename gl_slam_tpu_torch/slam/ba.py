@@ -36,7 +36,7 @@ from ..config import SLAMConfig
 from ..geometry import projection, se3
 from ..ops import select as select_ops
 from ..ops import smallmat
-from .state import MapState, _scatter
+from .state import MapState, _at, _scatter
 
 _I32 = torch.int32
 
@@ -355,8 +355,8 @@ def reconcile_async_ba(live: MapState, ba: MapState, kf_from,
     kf_from = _as_i32(kf_from, dev)
     pt_from = _as_i32(pt_from, dev)
     anchor = torch.clamp(kf_from - 1, 0, Kmax - 1).long()
-    dR, dt = se3.delta_pose(live.kf_R[anchor], live.kf_t[anchor],
-                            ba.kf_R[anchor], ba.kf_t[anchor])
+    dR, dt = se3.delta_pose(_at(live.kf_R, anchor), _at(live.kf_t, anchor),
+                            _at(ba.kf_R, anchor), _at(ba.kf_t, anchor))
     kf_old = torch.arange(Kmax, dtype=_I32, device=dev) < kf_from
     created_live = live.pts_first_kf >= kf_from
     pt_old = (torch.arange(live.capacity_pts, dtype=_I32, device=dev)

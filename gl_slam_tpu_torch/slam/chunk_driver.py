@@ -54,7 +54,7 @@ import torch
 from torch.profiler import record_function
 
 from ..config import SLAMConfig
-from ..device import resolve_device
+from ..device import resolve_device, upload
 from . import ba as ba_mod
 from . import frontend, fused, loopclose
 from .state import _at, recycle_free_slots
@@ -138,15 +138,7 @@ class ChunkedPipeline:
                           device=self.device)
 
     def _upload(self, a, dtype) -> torch.Tensor:
-        """A host array or a tensor on the pipeline's device. Host arrays go
-        through pinned memory, so the copy does not make the host wait for
-        the work already queued on the stream."""
-        if torch.is_tensor(a):
-            return a.to(self.device, dtype)
-        t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        return upload(a, dtype, self.device)
 
     def _images(self, images) -> torch.Tensor:
         return self._upload(images, torch.float32)

@@ -8,10 +8,15 @@ insert the keyframe. Everything stays fixed-shape: matches are index
 tensors with -1 sentinels, inlier sets are masks, and a rejected frame is
 a gated no-op insert, so the step needs no host read-back.
 
-The RANSAC draws are arguments (`u` of the bootstrap; the chunk's
-prologue passes each frame's essential result) instead of a PRNG key
-carried in the state. The PnP tracker, motion-gated keyframing and the
-merged / batched re-observation modes are not ported yet.
+Two callers: the chunk's prologue passes each frame's matches and
+essential result (slam/fused.py); the per-frame route (`track_step`,
+slam/pipeline.py) passes neither, and the step then matches the previous
+keyframe's descriptors against the frame's by mutual nearest neighbours
+(or takes the caller's learned matches) and runs the essential RANSAC
+itself. The RANSAC draws are arguments (`u`, (hypotheses, 8)) instead of a
+PRNG key carried in the state. The PnP tracker, motion-gated keyframing
+and the merged / batched re-observation modes are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -87,16 +92,17 @@ def _count(mask: torch.Tensor) -> torch.Tensor:
 def _check_supported(cfg: SLAMConfig) -> None:
     if cfg.runtime.tracker != "essential":
         raise NotImplementedError(
-            "the PnP tracker (geometry/pnp.py) is not ported yet; see "
-            "ROADMAP.md")
+            "the PnP tracker (runtime.tracker='pnp') is not ported yet; "
+            "see ROADMAP.md")
     if cfg.map.reobs_mode != "separate":
         raise NotImplementedError(
             f"reobs_mode={cfg.map.reobs_mode!r} is not ported yet (only "
             "'separate'); see ROADMAP.md")
     if not cfg.runtime.every_frame_keyframe:
         raise NotImplementedError(
-            "motion-gated keyframing (and the chunk prologue's recovery "
-            "path it needs) is not ported yet; see ROADMAP.md")
+            "motion-gated keyframing (every_frame_keyframe=False, with the "
+            "chunk prologue's recovery path) is not ported yet; see "
+            "ROADMAP.md")
 
 
 def init_track_state(cfg: SLAMConfig, device=None,
@@ -148,16 +154,22 @@ def track_state_from_numpy(fields, device=None) -> TrackState:
 
 
 def bootstrap_step(cfg: SLAMConfig, K, state: TrackState, f0: FrameFeatures,
-                   f1: FrameFeatures, gt_scale, matches: match_ops.MatchResult,
-                   u: torch.Tensor, patches1: Optional[torch.Tensor] = None):
-    """Two-view initialization: essential + cheirality from `matches`,
-    translation scaled to `gt_scale`, triangulation at the bootstrap
-    threshold, keyframes 0 and 1 inserted. `u`: (hypotheses, 8) RANSAC
-    draws. `patches1`: frame 1's image patches, carried for the pair
-    sub-pixel head (None keeps the state's)."""
+                   f1: FrameFeatures, gt_scale,
+                   matches: Optional[match_ops.MatchResult] = None,
+                   u: Optional[torch.Tensor] = None,
+                   patches1: Optional[torch.Tensor] = None):
+    """Two-view initialization: essential + cheirality from `matches`
+    (None: mutual nearest neighbours on the descriptors), translation
+    scaled to `gt_scale`, triangulation at the bootstrap threshold,
+    keyframes 0 and 1 inserted. `u`: (hypotheses, 8) RANSAC draws.
+    `patches1`: frame 1's image patches, carried for the pair sub-pixel
+    head (None keeps the state's)."""
+    if u is None:
+        raise ValueError("bootstrap_step needs the RANSAC draws `u`")
     g = cfg.geometry
     dev = f0.kpts.device
-    m = matches
+    m = matches if matches is not None else match_ops.mutual_nn_match(
+        f0.desc, f0.valid, f1.desc, f1.valid)
     pair = match_ops.score_filter(m.matches0, m.mscores0,
                                   cfg.frontend.match_threshold)
     uv0, uv1, pair = match_ops.gather_matched(f0.kpts, f1.kpts, m.matches0,
@@ -212,19 +224,25 @@ def bootstrap_step(cfg: SLAMConfig, K, state: TrackState, f0: FrameFeatures,
 
 
 def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
-                    matches: match_ops.MatchResult,
-                    ess_result: essential.EssentialResult, matcher=None,
-                    accept_gate: Optional[torch.Tensor] = None,
-                    patches: Optional[torch.Tensor] = None):
+                    matches: Optional[match_ops.MatchResult] = None,
+                    ess_result: Optional[essential.EssentialResult] = None,
+                    matcher=None, accept_gate: Optional[torch.Tensor] = None,
+                    patches: Optional[torch.Tensor] = None,
+                    u: Optional[torch.Tensor] = None):
     """Steady-state tracking of frame `f` against the previous keyframe.
 
-    `matches` and `ess_result`: the prev<->cur matches and their essential
-    result (the chunk prologue computes both). `matcher`: the learned
-    matcher for the two re-observation passes (None = mutual-NN).
-    `accept_gate`: () bool ANDed into the frame acceptance. `patches`: the
-    frame's image patches, carried into the state when the frame is
-    accepted (pair sub-pixel refinement)."""
+    `matches`: the prev<->cur matches (None: mutual nearest neighbours on
+    the descriptors). `ess_result`: their essential result, as the chunk
+    prologue computes it; None runs the RANSAC here on the draws `u`
+    ((hypotheses, 8)). `matcher`: the learned matcher for the two
+    re-observation passes (None = mutual-NN). `accept_gate`: () bool ANDed
+    into the frame acceptance. `patches`: the frame's image patches,
+    carried into the state when the frame is accepted (pair sub-pixel
+    refinement)."""
     _check_supported(cfg)
+    if ess_result is None and u is None:
+        raise ValueError("track_step_impl needs `ess_result` or the RANSAC "
+                         "draws `u`")
     g = cfg.geometry
     dev = f.kpts.device
     N = f.kpts.shape[0]
@@ -234,7 +252,8 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
     prev_c = torch.clamp(prev_kf, 0, Kmax - 1).long()
 
     # 1. prev keyframe <-> current frame correspondences
-    m = matches
+    m = matches if matches is not None else match_ops.mutual_nn_match(
+        state.prev_desc, state.prev_valid, f.desc, f.valid)
     pair = match_ops.score_filter(m.matches0, m.mscores0,
                                   cfg.frontend.match_threshold)
     uv0, uv1, pair = match_ops.gather_matched(state.prev_kpts, f.kpts,
@@ -247,6 +266,12 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
 
     # 3. essential pose chaining (constant-velocity translation scale)
     ess = ess_result
+    if ess is None:
+        with record_function("track.essential"):
+            ess = essential.estimate_essential(
+                K, uv0, uv1, pair, u, threshold_px=g.essential_threshold_px,
+                num_hypotheses=g.essential_hypotheses,
+                refine_iters=g.essential_refine_iters)
     R_pred, t_pred = se3.chain_relative(state.R_cur, state.t_cur, ess.R,
                                         ess.t * state.t_rel_norm)
 
@@ -418,3 +443,15 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
         dbg_err_young=dbg_err_young, dbg_n_old=dbg_n_old,
         dbg_soft_ok=soft_ok, dbg_step_ratio=dbg_ratio)
     return new_state, out
+
+
+def track_step(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures, u,
+               matches: Optional[match_ops.MatchResult] = None,
+               matcher=None):
+    """The standalone per-frame step: `track_step_impl` with the essential
+    RANSAC inside the step on the frame's draws `u` (hypotheses, 8).
+    `matches`: the caller's prev<->cur matches (the learned matcher); None
+    matches by mutual nearest neighbours. `matcher`: the learned matcher of
+    the two re-observation passes (None = mutual-NN)."""
+    return track_step_impl(cfg, K, state, f, matches=matches,
+                           matcher=matcher, u=u)

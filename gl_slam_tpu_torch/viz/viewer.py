@@ -1,17 +1,20 @@
 """Trajectory / map visualization, out of the tracking loop.
 
-Counterpart of `gl_slam_tpu/viz/viewer.py` without its `LiveViewer` (the
-per-frame route's during-run streaming, not ported yet; see ROADMAP.md):
-`MapSnapshot` copies the visualizable part of the port's `MapState` to the
-host, `to_json` exports it for an external 3D viewer, `render_topdown`
-plots the map and trajectory from above and `render_keypoint_overlay`
-draws one frame's keypoints, both to PNG through matplotlib (Agg). The two
-renderers return False when matplotlib is missing.
+Counterpart of `gl_slam_tpu/viz/viewer.py`: `MapSnapshot` copies the
+visualizable part of the port's `MapState` to the host, `to_json` exports
+it for an external 3D viewer, `render_topdown` plots the map and
+trajectory from above and `render_keypoint_overlay` draws one frame's
+keypoints, both to PNG through matplotlib (Agg). The two renderers return
+False when matplotlib is missing. `LiveViewer` streams snapshots to
+`live.json` (and `live.png` where matplotlib is present) during a run.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import queue
+import threading
 from typing import Optional
 
 import numpy as np
@@ -124,3 +127,74 @@ def render_keypoint_overlay(image: np.ndarray, kpts: np.ndarray,
     fig.savefig(path, dpi=120, bbox_inches="tight")
     plt.close(fig)
     return True
+
+
+class LiveViewer:
+    """During-run map streaming for a headless machine.
+
+    The tracking loop calls `update(map_state, frame_idx)` once per frame;
+    every `every`-th call takes a `MapSnapshot` (the host copy, on the
+    caller's thread, so the worker holds no device tensor) and hands it to
+    a worker thread, which writes `live.json` and, where matplotlib is
+    present, `live.png` (top-down view following the latest keyframe),
+    each through a temporary file and an atomic `os.replace`, so a poller
+    always reads a complete file. The queue holds ONE pending snapshot: a
+    newer one replaces it (dropped frames, as in a real-time viewer), so
+    rendering never holds tracking back. `close()` flushes what is pending
+    and stops the worker."""
+
+    def __init__(self, out_dir: str, every: int = 8,
+                 follow_radius_m: float = 60.0):
+        self.out_dir = out_dir
+        self.every = max(int(every), 1)
+        self.follow_radius_m = follow_radius_m
+        self.num_renders = 0
+        self.last_frame = None          # frame index of the last render
+        self._n_updates = 0
+        os.makedirs(out_dir, exist_ok=True)
+        self._q: queue.Queue = queue.Queue(maxsize=1)
+        self._stop = object()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def update(self, map_state, frame_idx: int) -> None:
+        """Cheap unless this is an export frame (a device-to-host copy of
+        the map's visualizable fields then)."""
+        self._n_updates += 1
+        if self._n_updates % self.every != 0:
+            return
+        item = (MapSnapshot(map_state), int(frame_idx))
+        try:
+            self._q.put_nowait(item)
+        except queue.Full:          # drop the stale pending snapshot
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                pass
+            try:
+                self._q.put_nowait(item)
+            except queue.Full:
+                pass
+
+    def close(self) -> None:
+        """Flush the pending snapshot and stop the worker."""
+        self._q.put(self._stop)
+        self._thread.join(timeout=30)
+
+    def _worker(self):
+        while True:
+            item = self._q.get()
+            if item is self._stop:
+                return
+            snap, self.last_frame = item
+            jtmp = os.path.join(self.out_dir, ".live.json.tmp")
+            snap.to_json(jtmp)
+            os.replace(jtmp, os.path.join(self.out_dir, "live.json"))
+            # matplotlib takes the format from the suffix: the temporary
+            # name must end in .png
+            ptmp = os.path.join(self.out_dir, ".tmp.live.png")
+            center = snap.centers[-1] if len(snap.centers) else None
+            if render_topdown(snap, ptmp, follow_center=center,
+                              follow_radius_m=self.follow_radius_m):
+                os.replace(ptmp, os.path.join(self.out_dir, "live.png"))
+            self.num_renders += 1

@@ -230,6 +230,35 @@ def test_nms_kernel_equals_plain(cuda_device, B, H, W, r, seg_rows):
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("H,W,r", [(376, 1248, 3), (376, 1241, 4),
+                                   (480, 752, 4)])
+def test_nms_kernel_at_the_per_frame_shapes(cuda_device, H, W, r):
+    """Batch 1, as the per-frame route extracts: the learned detector's
+    padded map at the command line's radius 3, and Harris at radius 4 on
+    the KITTI and EuRoC frame sizes. A map with plateaus on the plan's
+    borders and the Harris response of a rendered frame (border rows and
+    columns zeroed as HarrisExtractor does) each equal the plain version
+    bit for bit, and so do the keypoints detected through them."""
+    from gl_slam_tpu_torch.io import synthetic
+    from gl_slam_tpu_torch.models import classical
+
+    scene = synthetic.make_scene(num_landmarks=4000, num_frames=2, height=H,
+                                 width=W, seed=5)
+    img = torch.from_numpy(synthetic.render_frame(scene, 1, 2048))
+    resp = classical.harris_response(img.to(cuda_device))
+    resp[:8], resp[H - 8:], resp[:, :8], resp[:, W - 8:] = 0, 0, 0, 0
+    maps = [torch.from_numpy(_nms_maps(np.random.default_rng(11), 1, H, W,
+                                       r)).to(cuda_device),
+            resp[None].contiguous()]
+    for heat in maps:
+        got = t_nms.nms_cuda(heat, r)
+        assert torch.equal(got, t_nms.nms_plain(heat, r))
+        assert int((got > 1e-6).sum()) > 500
+        got = t_nms.detect_keypoints(heat, 2048, 1e-6, r)
+        want = t_nms.detect_keypoints(heat.cpu(), 2048, 1e-6, r)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("W", [1248, 1241])
 def test_nms_kernel_on_an_unaligned_map(cuda_device, W):
     """A map whose rows do not start on 16-byte boundaries (a contiguous
@@ -428,6 +457,62 @@ def test_cli_chunk_loop_does_not_wait_for_the_card(cuda_device, tmp_path,
     assert calls == [False, False, False, True]   # 3 chunks and the tail
     assert report["frames_fed"] == 15 and report["frames_rejected"] >= 3
     assert report["frames_tracked"] >= 11 and report["ba_runs"] == 4
+
+
+@pytest.mark.parametrize("route", [
+    ("--dataset", "synthetic", "--frontend", "oracle"),
+    ("--frontend", "superpoint", "--per-frame", "--match-thr", "0.4")],
+    ids=["oracle", "per-frame"])
+def test_per_frame_steps_do_not_wait_for_the_card(cuda_device, tmp_path,
+                                                  capsys, route):
+    """The command line's per-frame route on the card (tiny preset, 160x240,
+    the mutual-NN oracle route and the learned one with its matcher's
+    kernels): every `TrackingPipeline.step` that is not a BA trigger (where
+    the health check reads the pose) runs under PyTorch's sync debug mode,
+    which raises on an operation that makes the host wait for the stream.
+    The async BA's fold at the step after a trigger is inside."""
+    import json
+    import os
+
+    from gl_slam_tpu_torch import cli
+    from gl_slam_tpu_torch.io import synthetic
+    from gl_slam_tpu_torch.io.kitti import write_kitti_sequence
+    from gl_slam_tpu_torch.slam.pipeline import TrackingPipeline
+
+    ckpt = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
+    scene = synthetic.make_scene(num_landmarks=700, num_frames=12,
+                                 height=160, width=240, desc_dim=64, seed=23)
+    root = write_kitti_sequence(str(tmp_path / "kitti"), scene, 12,
+                                max_keypoints=96)
+    step = TrackingPipeline.step
+    strict = []
+
+    def checked(self, *args, **kw):
+        trigger = self._steps_since_check + 1 >= \
+            self.cfg.runtime.ba_trigger_keyframes
+        if not trigger:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step(self, *args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            strict.append(not trigger)
+
+    TrackingPipeline.step = checked
+    try:
+        rc = cli.main(["run", "--dataset", root, "--preset", "tiny",
+                       "--weights", ckpt, "--out", str(tmp_path / "out"),
+                       "--first-frame", "0", "--last-frame", "11",
+                       "--height", "160", "--width", "240", "--kpts", "96",
+                       "--landmarks", "1500", *route])
+    finally:
+        TrackingPipeline.step = step
+    assert rc == 0
+    report = json.loads(capsys.readouterr().out)
+    # 10 steps, BA trigger 7: the 7th step is the one not checked
+    assert strict == [i != 6 for i in range(10)]
+    assert report["frames_tracked"] == 12
+    assert report["map"]["num_ba_runs"] == 1
 
 
 def _revisit(dev):

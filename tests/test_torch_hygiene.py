@@ -50,9 +50,12 @@ def test_scan_sees_the_package():
     assert "chip_smoke.py" in names
     assert os.path.join("gl_slam_tpu_torch", "slam", "fused.py") in names
     assert os.path.join("gl_slam_tpu_torch", "slam", "loopclose.py") in names
-    for module in ("cli.py", "metrics.py", os.path.join("io", "kitti.py"),
+    for module in ("cli.py", "metrics.py", "tracing.py",
+                   os.path.join("io", "kitti.py"),
                    os.path.join("io", "euroc.py"),
-                   os.path.join("viz", "viewer.py")):
+                   os.path.join("viz", "viewer.py"),
+                   os.path.join("slam", "pipeline.py"),
+                   os.path.join("models", "classical.py")):
         assert os.path.join("gl_slam_tpu_torch", module) in names
     for script in ("eval_flagship_torch.py", "eval_loopclose_torch.py"):
         assert os.path.join("scripts", script) in names
@@ -98,3 +101,22 @@ def test_eval_entry_points_default_to_the_card(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["run", "--frontend", "superpoint", "--weights", ckpt,
                   "--out", os.path.join(ROOT, "chiprun_out", "unused")])
+
+
+def test_per_frame_entry_points_default_to_the_card(no_cuda, tmp_path):
+    """TrackingPipeline and the command line's per-frame routes (the
+    default oracle route included) without a device raise, before they
+    write anything."""
+    from gl_slam_tpu_torch import cli
+    from gl_slam_tpu_torch.config import micro_config
+    from gl_slam_tpu_torch.slam.pipeline import TrackingPipeline
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrackingPipeline(micro_config(48, 64, 32, 64), np.eye(3))
+    ckpt = os.path.join(ROOT, "checkpoints")
+    for extra in ((), ("--frontend", "harris"),
+                  ("--frontend", "superpoint", "--per-frame",
+                   "--weights", ckpt)):
+        out = tmp_path / "out"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["run", "--out", str(out), *extra])
+        assert not out.exists()

@@ -5,8 +5,8 @@ database with the port's mutual-NN matcher standing in for the learned
 one, as in the JAX test), the pose graph, the map correction and the
 closure in and out of its window, on the inputs of tests/test_loopclose.py:
 the JAX per-frame `TrackingPipeline` builds the map (10 frames of the
-240x320 synthetic scene with GT-stable descriptors; the per-frame pipeline
-is not ported) and `frontend.track_state_from_numpy` carries it across.
+240x320 synthetic scene with GT-stable descriptors) and
+`frontend.track_state_from_numpy` carries it across.
 Every PnP RANSAC of the port takes the Gumbel draws the JAX key gives.
 Both sides run in float32 at "highest" matmul precision
 (tests/conftest.py). log_so3, the solvers and the PnP pieces alone:
