@@ -53,11 +53,24 @@ Phases (any failure exits non-zero and prints no result line):
      host time by stage; then `--frontend harris` at full width (NMS kernel
      at radius 4) and the default oracle route (synthetic sequence), each
      with `--live-viz 8 --checkpoint`, and their artifacts.
+  9. run the chunked tracker of phase 3 (same frames, BA every 8, centroid
+     refinement, loop closing off, same draws) once per tracker option:
+     the batched and the merged re-observation modes (one matcher pass a
+     frame for the re-observations instead of two), the PnP tracker,
+     motion-gated keyframing at the default filters (every frame passes
+     them here; the keyframe poses must equal phase 3's within the spread
+     of phase 3's own repeated runs) and at 1e6 (only the bootstrap pair
+     kept; every tracked frame but a chunk's first takes the recovery
+     branch); each held to the launch counts its mode implies, 0
+     health-check recoveries, a finite state and, but for the last, phase
+     3's guards; the batched run profiled once.
 Phase 2 also holds attention and the assignment at the loop detector's
 shapes (2 candidates' 256-row keyframe databases against the 2048-keypoint
 frame, random database masks, one empty database) and at the per-frame
 route's (one pair of 2048-keypoint sets; NMS of one map at radius 3 and of
-a Harris response at radius 4).
+a Harris response at radius 4), and at the batched re-observation
+mode's (the window and covisibility sets, 1024 points each, on a leading
+set axis of 2 against the 2048-keypoint frame).
 The line before the last is the `kernels` JSON; the last line is the
 device JSON. Details go to chiprun_out/chip_smoke.json.
 """
@@ -105,17 +118,22 @@ CLI_FRAMES = 2 + 3 * CHUNK + 5
 CLI_CHUNKS = 4
 
 
-def expected_launches(n_chunks):
+def expected_launches(n_chunks, reobs_mode="separate"):
     """Kernel launches of a bootstrap plus `n_chunks` chunks. Matcher passes:
     the bootstrap's and each chunk prologue's (18 attention calls: 9 layers
-    x self + cross), and two per frame (72: 9 layers x 2 passes x (2 self +
-    2 cross, per set at its own size)); one assignment call per matcher
-    pass; one fused NMS launch per extraction call (bootstrap and each
-    chunk)."""
+    x self + cross), and the re-observation passes of each frame: two in
+    the "separate" mode (72: 9 layers x 2 passes x (2 self + 2 cross, per
+    set at its own size)), one in the "merged" and "batched" modes (36: the
+    batched mode's two sets ride a leading axis of the same calls); one
+    assignment call per matcher pass; one fused NMS launch per extraction
+    call (bootstrap and each chunk). The PnP tracker and motion gating
+    launch what the separate mode does (the chunk's recovery branch
+    matches by mutual nearest neighbours)."""
     tracked = n_chunks * CHUNK
-    return {"attention": 18 + n_chunks * 18 + tracked * 72,
+    passes = 2 if reobs_mode == "separate" else 1
+    return {"attention": 18 + n_chunks * 18 + tracked * 36 * passes,
             "assignment": ASSIGN_KERNELS_PER_CALL * (1 + n_chunks
-                                                     + tracked * 2),
+                                                     + tracked * passes),
             "nms": 1 + n_chunks}
 
 
@@ -201,8 +219,9 @@ def needle_qkv(torch, rnd, lead, nq, nk):
 
 def attention_cases(torch, gen, dev):
     """(name, q, k, v, mask) at the tracker's shapes: the prologue call
-    (8 pairs x 2 sets x 2 heads, 2048 x 2048) and the four re-observation
-    calls (1 set x 2 heads, (Nq, Nk) in {1024, 2048}^2)."""
+    (8 pairs x 2 sets x 2 heads, 2048 x 2048), the four re-observation
+    calls (1 set x 2 heads, (Nq, Nk) in {1024, 2048}^2) and the batched
+    mode's four (2 sets x 2 heads, the same (Nq, Nk))."""
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(
             torch.bfloat16)
@@ -240,6 +259,13 @@ def attention_cases(torch, gen, dev):
             mask = torch.rand(Q, nk, generator=gen, device=dev) < 0.9
         cases.append((f"detect {Q}x{HEADS}x{nq}x{nk}", q, k, v,
                       mask.contiguous()))
+    # The batched re-observation mode: the window and covisibility sets
+    # (1024 points each) against the frame (2048) on a leading set axis of
+    # 2, each set with its own random mask.
+    for nq, nk in ((M, M), (M, N), (N, M), (N, N)):
+        q, k, v = needle_qkv(torch, rnd, (S,), nq, nk)
+        mask = torch.rand(S, nk, generator=gen, device=dev) < 0.8
+        cases.append((f"batched {S}x{HEADS}x{nq}x{nk}", q, k, v, mask))
     # The per-frame route: every matcher pass is one pair of 2048-keypoint
     # sets, stacked (2 sets x 2 heads), ragged masks.
     q, k, v = needle_qkv(torch, rnd, (S,), N, N)
@@ -328,6 +354,8 @@ def assignment_cases(torch, gen, dev):
             (f"bootstrap and per-frame 1x{N_KPTS}x{N_KPTS}", 1, N_KPTS,
              N_KPTS),
             (f"reobs 1x{M_REOBS}x{N_KPTS}", 1, M_REOBS, N_KPTS),
+            (f"batched 2x{M_REOBS}x{N_KPTS}", 2, M_REOBS, N_KPTS),
+            (f"batched 2x{N_KPTS}x{N_KPTS}", 2, N_KPTS, N_KPTS),
             (f"detect {LOOP_CANDS}x{LOOP_DB}x{N_KPTS}", LOOP_CANDS, LOOP_DB,
              N_KPTS)):
         f0 = (rnd(B, N, FEAT_DIM) / 4).to(torch.bfloat16)
@@ -536,7 +564,8 @@ def check_nms(torch, gen, dev, report, cfg, sp, stack):
 
 STAGES = ("extract", "extract.nms", "prologue.match", "prologue.subpix",
           "prologue.essential", "track.match", "track.essential",
-          "track.reobserve_window", "track.reobserve_covis", "track.pose_lm",
+          "track.recover", "track.reobserve_window", "track.reobserve_covis",
+          "track.reobserve", "track.pnp", "track.pose_lm",
           "track.insert_keyframe", "backend.ba", "backend.recycle")
 OWN_KERNELS = {"attention": ("attention_kernel",),
                "assignment": ("assign_pass",),
@@ -696,10 +725,11 @@ def run_slice(torch, dev, details, cfg, sp, lg, scene, stack):
                                    ba_diag=ba_diag)
 
     t0 = time.perf_counter()
-    once({})                                 # warm-up: cuDNN plans, caches
+    warm, profiled = {}, {}
+    once(warm)                               # warm-up: cuDNN plans, caches
     torch.cuda.synchronize()
     print(f"  warm-up run {time.perf_counter() - t0:.1f} s", flush=True)
-    prof = details["profile"] = profile_run(torch, lambda: once({}))
+    prof = details["profile"] = profile_run(torch, lambda: once(profiled))
 
     diag = {}
     torch.cuda.reset_peak_memory_stats()
@@ -775,7 +805,9 @@ def run_slice(torch, dev, details, cfg, sp, lg, scene, stack):
         num_matches=o.num_matches.tolist(),
         num_inliers=o.num_inliers.tolist(),
         num_map_matches=o.num_map_matches.tolist())
-    return launches
+    # the keyframe poses of the three plain runs of the same frames, for
+    # phase 9's comparison
+    return [(d["R"], d["t"]) for d in (warm, profiled, diag)]
 
 
 def run_no_ba(torch, dev, details, cfg, sp, lg, scene, stack):
@@ -941,6 +973,135 @@ def run_done(torch, dev, details):
     details["done"] = dict(report=rep, launches=launches,
                            expected_launches=want, phase_wall_s=wall,
                            num_matches=o.num_matches.tolist())
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the tracker options on the chunked route
+
+# (name, map overrides, runtime overrides) of each run, in order
+OPTION_RUNS = (
+    ("batched", dict(reobs_mode="batched"), {}),
+    ("merged", dict(reobs_mode="merged"), {}),
+    ("pnp", {}, dict(tracker="pnp")),
+    ("gated", {}, dict(every_frame_keyframe=False)),
+    ("gated-1e6", {}, dict(every_frame_keyframe=False, gt_mag_filter=1e6,
+                           gt_rot_filter=1e6)),
+)
+
+
+def pose_gap(a, b):
+    """Largest difference between two runs' keyframe poses: (rotation
+    entries, translation m)."""
+    import numpy as np
+    return (float(np.abs(a[0] - b[0]).max()),
+            float(np.abs(a[1] - b[1]).max()))
+
+
+def run_options(torch, dev, details, cfg, sp, lg, scene, stack, slice_poses):
+    """The tracker options, one run each over phase 3's frames and setup
+    (bootstrap + 3 chunks of 8, BA every 8, centroid refinement, loop
+    closing off, seed 0): the batched and the merged re-observation modes,
+    the PnP tracker, motion gating at the default filters (every frame of
+    this ~1 m-per-frame scene passes them) and at 1e6 (no frame after the
+    bootstrap passes; every frame but a chunk's first takes the recovery
+    branch). A warm-up run of the batched mode over one chunk comes first,
+    and the batched run is profiled once more after its counted run."""
+    import dataclasses
+
+    import numpy as np
+
+    from gl_slam_tpu_torch.ops import _build
+    from gl_slam_tpu_torch.train import e2e
+
+    n_tracked = N_FRAMES - 2
+    spread = max(max(pose_gap(a, b)) for i, a in enumerate(slice_poses)
+                 for b in slice_poses[i + 1:])
+    out = {}
+    for name, map_kw, rt_kw in OPTION_RUNS:
+        ocfg = dataclasses.replace(
+            cfg, map=dataclasses.replace(cfg.map, **map_kw),
+            runtime=dataclasses.replace(cfg.runtime, **rt_kw))
+
+        def once(diag, n=N_FRAMES):
+            return e2e.run_learned_e2e(sp, lg, scene, ocfg, n, chunk=CHUNK,
+                                       ba_every=CHUNK, device=dev, seed=0,
+                                       stack=stack[:n], diag_out=diag)
+
+        if name == "batched":
+            once({}, N_FRAMES_NO_BA)      # first calls at the batch-2 shapes
+        diag = {}
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = once(diag)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        want = expected_launches(N_CHUNKS, ocfg.map.reobs_mode)
+        o = diag["outputs"]
+        rec = diag["recovery_frames"]
+        # the bootstrap's and the prologues' matcher calls set aside
+        per_frame = {
+            "attention": (launches["attention"] - 18 * (1 + N_CHUNKS))
+            / n_tracked,
+            "assignment": (launches["assignment"] - ASSIGN_KERNELS_PER_CALL
+                           * (1 + N_CHUNKS)) / n_tracked}
+        gap = pose_gap((diag["R"], diag["t"]), slice_poses[-1]) \
+            if res.num_keyframes == N_FRAMES else None
+        print(f"  {name}: frames {res.num_frames} keyframes "
+              f"{res.num_keyframes} rejected {res.num_rejected} recovery-"
+              f"branch frames {len(rec)} mean matches "
+              f"{res.mean_matches:.1f} map matches "
+              f"{float(o.num_map_matches.mean()):.1f} ATE {res.ate_m:.4f} m "
+              f"BA runs {res.num_ba_runs} recoveries "
+              f"{diag['num_recoveries']} tracked fps {res.fps:.2f} "
+              f"({wall:.1f} s) launches {launches} (expected {want}; per "
+              f"tracked frame past the prologues {per_frame})"
+              + ("" if gap is None else f"; keyframe poses vs phase 3: "
+                 f"{gap[0]:.3g} (R) {gap[1]:.3g} m (t)"), flush=True)
+        check(np.isfinite(o.R).all() and np.isfinite(o.t).all()
+              and np.isfinite(diag["R"]).all()
+              and np.isfinite(diag["t"]).all(), f"{name}: non-finite pose")
+        st = diag["state"]
+        check(all(bool(torch.isfinite(x).all()) for x in
+                  (*st.map, *st[1:]) if torch.is_tensor(x)
+                  and x.is_floating_point()), f"{name}: non-finite state")
+        check(diag["num_recoveries"] == 0,
+              f"{name}: {diag['num_recoveries']} health-check recoveries")
+        check(res.num_ba_runs == N_CHUNKS,
+              f"{name}: {res.num_ba_runs} BA runs, expected {N_CHUNKS}")
+        if name == "gated-1e6":
+            check(launches == want,
+                  f"{name}: launch counts {launches} != {want}")
+            check(res.num_keyframes == 2 and res.num_rejected == n_tracked,
+                  f"{name}: {res.num_keyframes} keyframes, "
+                  f"{res.num_rejected} rejected")
+            want_rec = [2 + i for i in range(n_tracked) if i % CHUNK]
+            check(rec == want_rec, f"{name}: recovery-branch frames {rec}, "
+                  f"expected {want_rec}")
+        else:
+            check_run(res, diag, N_FRAMES, launches, want, name)
+            check(rec == [], f"{name}: recovery-branch frames {rec}")
+        if name == "gated":
+            # every frame passes the default filters: the run is phase 3's
+            check(max(gap) <= spread,
+                  f"{name}: keyframe poses {gap} away from phase 3's run, "
+                  f"whose own runs differ by {spread}")
+        out[name] = dict(
+            map=map_kw, runtime=rt_kw, frames=res.num_frames,
+            keyframes=res.num_keyframes, rejected=res.num_rejected,
+            recovery_frames=rec, mean_matches=res.mean_matches,
+            mean_map_matches=float(o.num_map_matches.mean()),
+            mean_inliers=res.mean_inliers, ate_m=res.ate_m, fps=res.fps,
+            run_wall_s=wall, num_ba_runs=res.num_ba_runs,
+            num_recoveries=diag["num_recoveries"], launches=launches,
+            expected_launches=want, launches_per_tracked_frame=per_frame,
+            pose_gap_to_phase3=gap)
+        if name == "batched":
+            out[name]["profile"] = profile_run(torch, lambda: once({}))
+    out["phase3_spread"] = spread
+    print(f"  phase 3's three plain runs differ by up to {spread:.3g} in "
+          f"their keyframe poses", flush=True)
+    details["options"] = out
 
 
 def run_cli(torch, dev, details):
@@ -1290,7 +1451,7 @@ def main() -> int:
 
         print(f"phase 3: flagship-width chunked tracker with window BA "
               f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
-        run_slice(torch, dev, details, *slice_args)
+        slice_poses = run_slice(torch, dev, details, *slice_args)
         print(f"phase 4: the same tracker with BA off, bootstrap + 1 chunk "
               f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
         run_no_ba(torch, dev, details, *slice_args)
@@ -1310,6 +1471,10 @@ def main() -> int:
               f"directory: superpoint --per-frame (flagship), Harris, "
               f"oracle [{time.perf_counter() - t_start:.0f} s]", flush=True)
         launches = run_per_frame(torch, details, data)
+        print(f"phase 9: the tracker options on phase 3's frames: batched "
+              f"and merged re-observation, PnP, motion gating "
+              f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
+        run_options(torch, dev, details, *slice_args, slice_poses)
         details["wall_s"] = time.perf_counter() - t_start
         print(f"all phases passed [{details['wall_s']:.0f} s]", flush=True)
 

@@ -24,9 +24,9 @@ Two routes, as in the JAX CLI:
         --preset flagship --first-frame 0 --last-frame 30
     gl-slam-tpu-torch run --dataset <EuRoC dir> --frontend harris
 
-The per-frame route's configuration takes the tracker options the port
-has: the PnP tracker, the merged and batched re-observation modes and
-motion-gated keyframing are not ported yet and raise (see ROADMAP.md).
+Both routes take every tracker option of the JAX package's configuration
+(the PnP tracker, the merged and batched re-observation modes,
+motion-gated keyframing).
 """
 from __future__ import annotations
 

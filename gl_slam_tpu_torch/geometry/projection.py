@@ -12,13 +12,14 @@ import torch
 
 def project(K: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
             pts_w: torch.Tensor):
-    """Project (N,3) world points: (uv (N,2), depth (N,), in_front (N,))."""
-    pc = pts_w @ R.T + t
-    z = pc[:, 2]
+    """Project (..., N, 3) world points at poses R (..., 3, 3), t (..., 3):
+    (uv (..., N, 2), depth (..., N), in_front (..., N))."""
+    pc = pts_w @ R.transpose(-1, -2) + t[..., None, :]
+    z = pc[..., 2]
     in_front = z > 1e-6
     zs = torch.where(in_front, z, 1.0)
-    x = pc[:, 0] / zs
-    y = pc[:, 1] / zs
+    x = pc[..., 0] / zs
+    y = pc[..., 1] / zs
     uv = torch.stack([K[0, 0] * x + K[0, 2], K[1, 1] * y + K[1, 2]], dim=-1)
     return uv, z, in_front
 
@@ -32,8 +33,8 @@ def reprojection_error(K, R, t, pts_w, uv_obs):
 
 def in_image(uv: torch.Tensor, height: int, width: int,
              margin: float = 0.0) -> torch.Tensor:
-    return ((uv[:, 0] >= margin) & (uv[:, 0] < width - margin)
-            & (uv[:, 1] >= margin) & (uv[:, 1] < height - margin))
+    return ((uv[..., 0] >= margin) & (uv[..., 0] < width - margin)
+            & (uv[..., 1] >= margin) & (uv[..., 1] < height - margin))
 
 
 def normalize_points(K: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:

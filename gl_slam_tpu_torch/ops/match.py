@@ -19,13 +19,15 @@ class MatchResult(NamedTuple):
 def mutual_nn_match(desc0, valid0, desc1, valid1,
                     min_score: float = 0.0) -> MatchResult:
     """Mutual nearest-neighbour matching on unit-norm descriptors; scores
-    are cosine similarities remapped to [0, 1]."""
-    sim = desc0.float() @ desc1.float().T
-    sim = torch.where(valid0[:, None] & valid1[None, :], sim, -1e9)
-    nn0 = torch.argmax(sim, dim=1)
-    nn1 = torch.argmax(sim, dim=0)
-    best0 = sim.amax(dim=1)
-    mutual = nn1[nn0] == torch.arange(sim.shape[0], device=sim.device)
+    are cosine similarities remapped to [0, 1]. Leading batch dimensions
+    are allowed."""
+    sim = desc0.float() @ desc1.float().transpose(-1, -2)
+    sim = torch.where(valid0[..., :, None] & valid1[..., None, :], sim, -1e9)
+    nn0 = torch.argmax(sim, dim=-1)
+    nn1 = torch.argmax(sim, dim=-2)
+    best0 = sim.amax(dim=-1)
+    mutual = torch.gather(nn1, -1, nn0) == torch.arange(sim.shape[-2],
+                                                        device=sim.device)
     score01 = 0.5 * (best0 + 1.0)
     ok = mutual & valid0 & (score01 > min_score) & (best0 > -1e8)
     return MatchResult(matches0=torch.where(ok, nn0, -1).to(torch.int32),

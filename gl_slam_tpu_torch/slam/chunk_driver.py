@@ -8,7 +8,8 @@ slot recycling every `ba_every` frames, the NaN health check with rollback
 at that cadence, and the periodic loop-closure hook (slam/loopclose.py).
 
 Nothing here reads the device back while tracking, apart from a loop
-closure that is applied: a chunk and its BA pass run under PyTorch's sync
+closure that is applied and, under motion-gated keyframing, the chunk's
+recovery branch (below): a chunk and its BA pass run under PyTorch's sync
 debug mode without a wait for the stream (tests/test_torch_cuda.py).
 Frames given as host arrays go up through pinned memory. The BA window is
 derived from `num_kf` on the device. The health check works with a
@@ -29,18 +30,30 @@ on the host (`loopclose.close_loop`, pose graph over the last
 `pose_graph_window` keyframes, the loop edge on the keyframe that was
 newest when the detection ran).
 
+Motion-gated keyframing (`every_frame_keyframe=False`) rejects frames as
+a matter of course; a rejected frame keeps the state as it was, so the
+health check never sees it. The frame after it takes the chunk's recovery
+branch (slam/fused.py), whose one host read per frame is this mode's only
+wait for the card while tracking; `recovery_frames` lists the frames that
+took the branch.
+
 Randomness: the essential RANSAC of the bootstrap and of every frame takes
-(hypotheses, 8) uniform draws, in the order bootstrap, then frame by frame.
+(hypotheses, 8) uniform draws, in the order bootstrap, then frame by frame
+(a frame on the recovery branch reuses its prologue draws).
 By default they come from a `torch.Generator` seeded with `seed`; `draws`,
 a callable n -> (n, hypotheses, 8) tensor, replaces that source (a test
-feeds the JAX reference's own draws through it). Each loop detection takes
-its PnP Gumbel draws (loop_candidates, pnp_hypotheses, database rows) from
-a generator of its own, seeded with the frame count at the check, as the
-JAX version keys it with `PRNGKey(frames)`; `loop_draws`, a callable
-frames -> that tensor, replaces it. Detection never touches the tracker's
-draws or state, so a run in which no closure fires equals the run with
-loop closing off bit for bit. `warmup` draws from throwaway generators
-only, so a run with it equals the run without it bit for bit.
+feeds the JAX reference's own draws through it). Under the PnP tracker
+the frames take no essential draws (only the bootstrap does) but one
+(pnp_hypotheses, max_keypoints) Gumbel set each for the PnP RANSAC, from
+a generator of their own seeded with `seed + 1`; `pnp_draws`, a callable
+n -> (n, pnp_hypotheses, max_keypoints), replaces it. Each loop detection
+takes its PnP Gumbel draws (loop_candidates, pnp_hypotheses, database
+rows) from a generator of its own, seeded with the frame count at the
+check, as the JAX version keys it with `PRNGKey(frames)`; `loop_draws`, a
+callable frames -> that tensor, replaces it. Detection never touches the
+tracker's draws or state, so a run in which no closure fires equals the
+run with loop closing off bit for bit. `warmup` draws from throwaway
+generators only, so a run with it equals the run without it bit for bit.
 """
 
 from __future__ import annotations
@@ -87,7 +100,8 @@ class ChunkedPipeline:
                  device=None,
                  draws: Optional[Callable[[int], torch.Tensor]] = None,
                  ba_diag: bool = False, subpix_head=None,
-                 loop_draws: Optional[Callable[[int], torch.Tensor]] = None):
+                 loop_draws: Optional[Callable[[int], torch.Tensor]] = None,
+                 pnp_draws: Optional[Callable[[int], torch.Tensor]] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.K = torch.as_tensor(np.asarray(K), dtype=torch.float32,
@@ -103,6 +117,11 @@ class ChunkedPipeline:
         self.match_fn = fused.build_matcher(cfg, lg_net)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._draws = draws
+        self._pnp = cfg.runtime.tracker == "pnp"
+        self._pnp_gen = torch.Generator(device=self.device).manual_seed(
+            seed + 1)
+        self._pnp_draws = pnp_draws
+        self.recovery_frames: List[int] = []
         self.enable_ba = enable_ba and cfg.runtime.run_full_ba
         self.ba_every_chunks = max(ba_every // chunk, 1)
         self._win_kf = self.ba_every_chunks * chunk
@@ -136,6 +155,19 @@ class ChunkedPipeline:
         H = self.cfg.geometry.essential_hypotheses
         return torch.rand((n, H, 8), generator=self._gen,
                           device=self.device)
+
+    def pnp_draw(self, n: int) -> torch.Tensor:
+        """The next n PnP RANSAC draw sets, (n, pnp_hypotheses,
+        max_keypoints) standard Gumbels."""
+        if self._pnp_draws is not None:
+            g = torch.as_tensor(self._pnp_draws(n), dtype=torch.float32)
+            return g.to(self.device)
+        return loopclose.pnp_draws(self._pnp_gen, self._pnp_shape(n),
+                                   device=self.device)
+
+    def _pnp_shape(self, n: int):
+        cfg = self.cfg
+        return (n, cfg.geometry.pnp_hypotheses, cfg.frontend.max_keypoints)
 
     def _upload(self, a, dtype) -> torch.Tensor:
         return upload(a, dtype, self.device)
@@ -226,8 +258,11 @@ class ChunkedPipeline:
         H = self.cfg.geometry.essential_hypotheses
         gen = torch.Generator(device=self.device).manual_seed(0)
         u = torch.rand((self.chunk, H, 8), generator=gen, device=self.device)
-        st, _ = self.chunk_fn(self.state, self._images(images), self._frames,
-                              u)
+        gumbel = loopclose.pnp_draws(gen, self._pnp_shape(self.chunk),
+                                     device=self.device) \
+            if self._pnp else None
+        st, _, _ = self.chunk_fn(self.state, self._images(images),
+                                 self._frames, u, pnp_gumbel=gumbel)
         if self.enable_ba:
             st = self._ba_fn(st)
         if self._detect_fn is not None:
@@ -238,17 +273,23 @@ class ChunkedPipeline:
     def track_chunk(self, images, frame_idx0: Optional[int] = None,
                     frame_gate=None):
         """Track one chunk of T frames, then run the BA pass and the health
-        check when their cadence is due (no host read-back). `frame_gate`
+        check when their cadence is due (no host read-back, apart from the
+        recovery branch's under motion-gated keyframing). `frame_gate`
         (T,) bool force-rejects the frames where it is False: the padding
         of a partial tail chunk (slam/fused.py)."""
         if frame_idx0 is None:
             frame_idx0 = self._frames
         gate = None if frame_gate is None \
             else self._upload(np.asarray(frame_gate, dtype=bool), torch.bool)
-        self.state, outs = self.chunk_fn(self.state, self._images(images),
-                                         frame_idx0, self.draw(self.chunk),
-                                         frame_gate=gate)
+        # the essential RANSAC's draws, or under the PnP tracker the PnP's
+        u, gumbel = (None, self.pnp_draw(self.chunk)) if self._pnp \
+            else (self.draw(self.chunk), None)
+        self.state, outs, recovered = self.chunk_fn(
+            self.state, self._images(images), frame_idx0, u,
+            frame_gate=gate, pnp_gumbel=gumbel)
         self.outputs.append(outs)
+        self.recovery_frames += [frame_idx0 + i
+                                 for i, r in enumerate(recovered) if r]
         self._frames += self.chunk
         self._chunks_since_ba += 1
         if self.enable_ba and self._chunks_since_ba >= self.ba_every_chunks:

@@ -1,22 +1,25 @@
 """The tracking step: two-view bootstrap + steady-state frontend.
 
-Counterpart of gl_slam_tpu/slam/frontend.py on the essential tracker:
-match prev keyframe <-> current frame, re-observe map points (map window,
-covisibility), chain the essential pose, solve the pose against the map
+Counterpart of gl_slam_tpu/slam/frontend.py: match prev keyframe <->
+current frame, re-observe map points (map window and covisibility, in
+separate, merged or batched passes: slam/reobserve.py), predict the pose
+(essential chaining, or the previous pose under the PnP tracker, which
+then solves PnP RANSAC on the 3D-2D set), solve the pose against the map
 (3-start pose LM), gate the associations, triangulate the leftovers and
-insert the keyframe. Everything stays fixed-shape: matches are index
-tensors with -1 sentinels, inlier sets are masks, and a rejected frame is
-a gated no-op insert, so the step needs no host read-back.
+insert the keyframe, every frame or, with `every_frame_keyframe=False`,
+the frames that pass the keyframe motion filter. Everything stays
+fixed-shape: matches are index tensors with -1 sentinels, inlier sets are
+masks, and a rejected frame is a gated no-op insert, so the step needs no
+host read-back.
 
 Two callers: the chunk's prologue passes each frame's matches and
 essential result (slam/fused.py); the per-frame route (`track_step`,
 slam/pipeline.py) passes neither, and the step then matches the previous
 keyframe's descriptors against the frame's by mutual nearest neighbours
 (or takes the caller's learned matches) and runs the essential RANSAC
-itself. The RANSAC draws are arguments (`u`, (hypotheses, 8)) instead of a
-PRNG key carried in the state. The PnP tracker, motion-gated keyframing
-and the merged / batched re-observation modes are not ported yet and
-raise.
+itself. The random draws are arguments instead of a PRNG key carried in
+the state: the essential RANSAC's uniforms (`u`, (hypotheses, 8)) and the
+PnP RANSAC's Gumbels (`pnp_gumbel`, (pnp_hypotheses, N)).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 from torch.profiler import record_function
 
 from ..config import SLAMConfig
-from ..geometry import essential, projection, se3, triangulation
+from ..geometry import essential, pnp, projection, se3, triangulation
 from ..ops import match as match_ops
 from . import pose_ba, reobserve
 from .state import (MapState, _at, _scatter, init_map_state, insert_keyframe,
@@ -87,22 +90,6 @@ class TrackOutputs(NamedTuple):
 
 def _count(mask: torch.Tensor) -> torch.Tensor:
     return mask.to(_I32).sum(dtype=_I32)
-
-
-def _check_supported(cfg: SLAMConfig) -> None:
-    if cfg.runtime.tracker != "essential":
-        raise NotImplementedError(
-            "the PnP tracker (runtime.tracker='pnp') is not ported yet; "
-            "see ROADMAP.md")
-    if cfg.map.reobs_mode != "separate":
-        raise NotImplementedError(
-            f"reobs_mode={cfg.map.reobs_mode!r} is not ported yet (only "
-            "'separate'); see ROADMAP.md")
-    if not cfg.runtime.every_frame_keyframe:
-        raise NotImplementedError(
-            "motion-gated keyframing (every_frame_keyframe=False, with the "
-            "chunk prologue's recovery path) is not ported yet; see "
-            "ROADMAP.md")
 
 
 def init_track_state(cfg: SLAMConfig, device=None,
@@ -228,22 +215,33 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
                     ess_result: Optional[essential.EssentialResult] = None,
                     matcher=None, accept_gate: Optional[torch.Tensor] = None,
                     patches: Optional[torch.Tensor] = None,
-                    u: Optional[torch.Tensor] = None):
+                    u: Optional[torch.Tensor] = None,
+                    pnp_gumbel: Optional[torch.Tensor] = None):
     """Steady-state tracking of frame `f` against the previous keyframe.
 
     `matches`: the prev<->cur matches (None: mutual nearest neighbours on
     the descriptors). `ess_result`: their essential result, as the chunk
     prologue computes it; None runs the RANSAC here on the draws `u`
-    ((hypotheses, 8)). `matcher`: the learned matcher for the two
+    ((hypotheses, 8)). `matcher`: the learned matcher for the
     re-observation passes (None = mutual-NN). `accept_gate`: () bool ANDed
     into the frame acceptance. `patches`: the frame's image patches,
     carried into the state when the frame is accepted (pair sub-pixel
-    refinement)."""
-    _check_supported(cfg)
-    if ess_result is None and u is None:
+    refinement).
+
+    The PnP tracker (`runtime.tracker="pnp"`) takes neither `ess_result`
+    nor `u`: it predicts the previous pose, solves PnP RANSAC on the 3D-2D
+    set with the Gumbel draws `pnp_gumbel` ((pnp_hypotheses, N)) and starts
+    the pose LM from its pose."""
+    g = cfg.geometry
+    use_pnp = cfg.runtime.tracker == "pnp"
+    if use_pnp and pnp_gumbel is None:
+        raise ValueError("the PnP tracker needs the Gumbel draws "
+                         "`pnp_gumbel`")
+    if not use_pnp and ess_result is None and u is None:
         raise ValueError("track_step_impl needs `ess_result` or the RANSAC "
                          "draws `u`")
-    g = cfg.geometry
+    mode = cfg.map.reobs_mode
+    one_pass = mode in ("merged", "batched")
     dev = f.kpts.device
     N = f.kpts.shape[0]
     mstate = state.map
@@ -259,25 +257,38 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
     uv0, uv1, pair = match_ops.gather_matched(state.prev_kpts, f.kpts,
                                               m.matches0, pair)
 
-    # 2. map re-observation through the last-W-keyframes window
-    with record_function("track.reobserve_window"):
-        reob = reobserve.match_map_window(cfg, K, mstate, state.R_cur,
-                                          state.t_cur, f, matcher=matcher)
+    # 2. map re-observation through the last-W-keyframes window (in merged
+    #    and batched mode it joins the pass after the pose prediction)
+    if not one_pass:
+        with record_function("track.reobserve_window"):
+            reob = reobserve.match_map_window(cfg, K, mstate, state.R_cur,
+                                              state.t_cur, f,
+                                              matcher=matcher)
 
-    # 3. essential pose chaining (constant-velocity translation scale)
-    ess = ess_result
-    if ess is None:
-        with record_function("track.essential"):
-            ess = essential.estimate_essential(
-                K, uv0, uv1, pair, u, threshold_px=g.essential_threshold_px,
-                num_hypotheses=g.essential_hypotheses,
-                refine_iters=g.essential_refine_iters)
-    R_pred, t_pred = se3.chain_relative(state.R_cur, state.t_cur, ess.R,
-                                        ess.t * state.t_rel_norm)
+    # 3. pose prediction: the previous pose (PnP), else essential chaining
+    #    with the constant-velocity translation scale
+    if use_pnp:
+        R_pred, t_pred = state.R_cur, state.t_cur
+        geom_inliers, geom_num_inliers = pair, _count(pair)
+        geom_ok = torch.ones((), dtype=torch.bool, device=dev)
+        R_chain = torch.eye(3, dtype=torch.float32, device=dev)
+    else:
+        ess = ess_result
+        if ess is None:
+            with record_function("track.essential"):
+                ess = essential.estimate_essential(
+                    K, uv0, uv1, pair, u,
+                    threshold_px=g.essential_threshold_px,
+                    num_hypotheses=g.essential_hypotheses,
+                    refine_iters=g.essential_refine_iters)
+        R_pred, t_pred = se3.chain_relative(state.R_cur, state.t_cur, ess.R,
+                                            ess.t * state.t_rel_norm)
+        geom_inliers, geom_num_inliers = ess.inliers, ess.num_inliers
+        geom_ok, R_chain = ess.ok, ess.R
 
     # 4. 3D-2D association. (a) matched prev keypoints with a map point
     prev_kp2mp = _at(mstate.kf_kp2mp, prev_c)
-    inl_pair = pair & ess.inliers
+    inl_pair = pair & geom_inliers
     mp_prev = torch.where(inl_pair, prev_kp2mp, -1)
     mp_bad = mstate.pts_bad[torch.clamp(mp_prev, 0, Pmax - 1).long()]
     mp_prev = torch.where((mp_prev >= 0) & ~mp_bad, mp_prev, -1)
@@ -285,22 +296,38 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
     reobs_mpid = _scatter(torch.full((N,), -1, dtype=_I32, device=dev),
                           cur_rows, mp_prev)
     n_assoc_a = _count(reobs_mpid >= 0)
-    # (b) map-window re-observations
-    reobs_mpid = torch.where(reobs_mpid >= 0, reobs_mpid, reob.reobs_mpid)
-    n_assoc_b = _count(reobs_mpid >= 0) - n_assoc_a
-    # (c) covisibility retrieval at the predicted pose
-    if cfg.map.use_covis_retrieval:
-        with record_function("track.reobserve_covis"):
-            cov = reobserve.match_covisible(cfg, K, mstate, R_pred, t_pred,
-                                            f, seed_mpid=reobs_mpid,
-                                            already_mpid=reobs_mpid,
-                                            matcher=matcher)
+    if one_pass:
+        # (b)+(c) in one matcher call, seeded by (a) at the predicted pose
+        with record_function("track.reobserve"):
+            if mode == "merged":
+                both = reobserve.match_unified(
+                    cfg, K, mstate, R_pred, t_pred, f, seed_mpid=reobs_mpid,
+                    matcher=matcher)
+            else:
+                both = reobserve.match_batched(
+                    cfg, K, mstate, state.R_cur, state.t_cur, R_pred, t_pred,
+                    f, seed_mpid=reobs_mpid, matcher=matcher)
         reobs_mpid = torch.where(reobs_mpid >= 0, reobs_mpid,
-                                 cov.reobs_mpid)
-    n_assoc_c = _count(reobs_mpid >= 0) - n_assoc_a - n_assoc_b
+                                 both.reobs_mpid)
+        n_assoc_b = _count(reobs_mpid >= 0) - n_assoc_a
+        n_assoc_c = torch.zeros((), dtype=_I32, device=dev)
+    else:
+        # (b) map-window re-observations
+        reobs_mpid = torch.where(reobs_mpid >= 0, reobs_mpid,
+                                 reob.reobs_mpid)
+        n_assoc_b = _count(reobs_mpid >= 0) - n_assoc_a
+        # (c) covisibility retrieval at the predicted pose
+        if cfg.map.use_covis_retrieval:
+            with record_function("track.reobserve_covis"):
+                cov = reobserve.match_covisible(
+                    cfg, K, mstate, R_pred, t_pred, f, seed_mpid=reobs_mpid,
+                    already_mpid=reobs_mpid, matcher=matcher)
+            reobs_mpid = torch.where(reobs_mpid >= 0, reobs_mpid,
+                                     cov.reobs_mpid)
+        n_assoc_c = _count(reobs_mpid >= 0) - n_assoc_a - n_assoc_b
 
-    # 5. pose solve: three starts (essential prediction, previous pose,
-    #    constant velocity), lowest final robust cost wins
+    # 5. pose solve: three starts (the prediction or the PnP pose, the
+    #    previous pose, constant velocity), lowest final robust cost wins
     has3d = reobs_mpid >= 0
     rid = torch.clamp(reobs_mpid, 0, Pmax - 1).long()
     p3d = mstate.pts_xyz[rid]
@@ -309,13 +336,25 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
     pt_w = torch.where(age >= cfg.ba.pose_young_age, 1.0,
                        cfg.ba.pose_young_weight) \
         if cfg.ba.pose_young_weight < 1.0 else None
+    if use_pnp:
+        # absolute pose from PnP RANSAC on the 3D-2D set; its outliers
+        # lose their association
+        with record_function("track.pnp"):
+            pr = pnp.solve_pnp_ransac(K, p3d, f.kpts, has3d, pnp_gumbel,
+                                      threshold_px=g.pnp_threshold_px,
+                                      num_hypotheses=g.pnp_hypotheses)
+        reobs_mpid = torch.where(pr.inliers, reobs_mpid, -1)
+        has3d = reobs_mpid >= 0
+        R_init, t_init = pr.R, pr.t
+    else:
+        R_init, t_init = R_pred, t_pred
     if run_pose_ba:
         R_cv, t_cv = se3.chain_relative(state.R_cur, state.t_cur,
                                         state.R_rel, state.t_rel)
         with record_function("track.pose_lm"):
             pb = pose_ba.pose_only_ba_multi(
-                K, torch.stack([R_pred, state.R_cur, R_cv]),
-                torch.stack([t_pred, state.t_cur, t_cv]), p3d, f.kpts,
+                K, torch.stack([R_init, state.R_cur, R_cv]),
+                torch.stack([t_init, state.t_cur, t_cv]), p3d, f.kpts,
                 has3d, iters=cfg.ba.pose_only_iters,
                 cauchy_scale=cfg.ba.pose_only_cauchy_scale,
                 coarse_iters=cfg.ba.pose_only_coarse_iters,
@@ -325,7 +364,7 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
         R_cur, t_cur, pose_cost = (_at(pb.R, best), _at(pb.t, best),
                                    _at(pb.final_cost, best))
     else:
-        R_cur, t_cur = R_pred, t_pred
+        R_cur, t_cur = R_init, t_init
         pose_cost = torch.zeros((), device=dev)
 
     # 5b. association reprojection gate + pose re-polish
@@ -356,53 +395,70 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
                     point_weights=pt_w)
             R_cur, t_cur, pose_cost = pb2.R, pb2.t, pb2.final_cost
 
-    # 5c. soft trust decision + odometry fallback
+    # 5c. soft trust decision + odometry fallback (the step-ratio check and
+    #     the fallback are the essential tracker's)
     n_3d = _count(has3d)
     soft_ok = n_3d >= 6
     if run_pose_ba:
         mean_rho = pose_cost / torch.clamp(n_3d.float(), min=1.0)
         soft_ok = soft_ok & (mean_rho < cfg.runtime.pose_accept_mean_cost)
     dbg_ratio = zf
-    if cfg.runtime.pose_step_max_ratio > 1.0:
+    if not use_pnp and cfg.runtime.pose_step_max_ratio > 1.0:
         rr = cfg.runtime.pose_step_max_ratio
         step_lm = torch.linalg.vector_norm(
             t_cur - (R_cur @ state.R_cur.T) @ state.t_cur)
         ratio = step_lm / torch.clamp(state.t_rel_norm, min=1e-3)
         dbg_ratio = ratio
         soft_ok = soft_ok & (ratio < rr) & (ratio > 1.0 / rr)
-    if cfg.runtime.soft_reject_fallback:
+    if not use_pnp and cfg.runtime.soft_reject_fallback:
         R_cur = torch.where(soft_ok, R_cur, R_pred)
         t_cur = torch.where(soft_ok, t_cur, t_pred)
 
     # 5d. SO(3) re-orthonormalization
     R_cur = se3.project_to_so3(R_cur)
 
-    # 6. triangulate leftover inlier pairs in the pair's own frame, then
-    #    anchor them to the solved current pose
+    # 6. triangulate leftover inlier pairs: between the two map poses
+    #    (PnP), else in the pair's own frame and then anchored to the solved
+    #    current pose
     cur_idx = torch.clamp(m.matches0, 0, N - 1).long()
     is_rest = inl_pair & (prev_kp2mp < 0) & (reobs_mpid[cur_idx] < 0)
     R_prev, t_prev = _at(mstate.kf_R, prev_c), _at(mstate.kf_t, prev_c)
-    eye3 = torch.eye(3, dtype=torch.float32, device=dev)
-    zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
-    s_lm = torch.linalg.vector_norm(t_cur - (R_cur @ R_prev.T) @ t_prev)
-    t_rel_e = ess.t * s_lm
-    tri = triangulation.triangulate(
-        K, eye3, zero3, ess.R, t_rel_e, uv0, uv1, mask=is_rest,
-        max_depth=g.max_depth, max_reproj_px=g.triangulation_reproj_px,
-        min_parallax_deg=g.min_parallax_deg)
-    tri_pts = (tri.points @ ess.R.T + t_rel_e - t_cur) @ R_cur
-    tri = tri._replace(points=tri_pts)
-    _, z0d, f0d = projection.project(K, R_prev, t_prev, tri_pts)
-    _, _, f1d = projection.project(K, R_cur, t_cur, tri_pts)
+    if use_pnp:
+        tri = triangulation.triangulate(
+            K, R_prev, t_prev, R_cur, t_cur, uv0, uv1, mask=is_rest,
+            max_depth=g.max_depth, max_reproj_px=g.triangulation_reproj_px,
+            min_parallax_deg=g.min_parallax_deg)
+        s_lm = zf
+    else:
+        eye3 = torch.eye(3, dtype=torch.float32, device=dev)
+        zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
+        s_lm = torch.linalg.vector_norm(t_cur - (R_cur @ R_prev.T) @ t_prev)
+        t_rel_e = ess.t * s_lm
+        tri = triangulation.triangulate(
+            K, eye3, zero3, ess.R, t_rel_e, uv0, uv1, mask=is_rest,
+            max_depth=g.max_depth, max_reproj_px=g.triangulation_reproj_px,
+            min_parallax_deg=g.min_parallax_deg)
+        tri = tri._replace(
+            points=(tri.points @ ess.R.T + t_rel_e - t_cur) @ R_cur)
+    _, z0d, f0d = projection.project(K, R_prev, t_prev, tri.points)
+    _, _, f1d = projection.project(K, R_cur, t_cur, tri.points)
     tri_cheir = is_rest & f0d & f1d & (z0d < g.max_depth)
     tri_reproj = tri_cheir & (tri.errors <= g.triangulation_reproj_px)
 
     # 7. frame acceptance gate
-    frame_ok = ess.ok
-    if not cfg.runtime.soft_reject_fallback:
+    frame_ok = geom_ok
+    if use_pnp or not cfg.runtime.soft_reject_fallback:
         frame_ok = frame_ok & soft_ok
     if accept_gate is not None:
         frame_ok = frame_ok & accept_gate
+    if use_pnp:
+        frame_ok = frame_ok & pr.ok
+    if not cfg.runtime.every_frame_keyframe:
+        # keyframe motion filter: low-motion frames are skipped
+        t_rel_mag = torch.linalg.vector_norm(t_cur - R_chain @ state.t_cur)
+        frame_ok = frame_ok & (
+            (t_rel_mag > cfg.runtime.gt_mag_filter)
+            | (se3.rotation_angle_deg(R_chain) > cfg.runtime.gt_rot_filter))
 
     # 8. keyframe + map insertion (gated)
     with record_function("track.insert_keyframe"):
@@ -413,7 +469,7 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
             covis_threshold=cfg.map.covis_edge_threshold,
             enabled=frame_ok)
 
-    t_rel_post = t_cur - ess.R @ state.t_cur
+    t_rel_post = t_cur - R_chain @ state.t_cur
     R_rel_post = R_cur @ state.R_cur.T
     t_rel_cv = t_cur - R_rel_post @ state.t_cur
 
@@ -433,7 +489,7 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
 
     out = TrackOutputs(
         R=new_state.R_cur, t=new_state.t_cur, num_matches=_count(pair),
-        num_inliers=ess.num_inliers, num_map_matches=n_3d,
+        num_inliers=geom_num_inliers, num_map_matches=n_3d,
         num_new_points=torch.where(frame_ok, _count(tri.valid), 0),
         pose_cost=pose_cost, frame_ok=frame_ok, num_rest=_count(is_rest),
         num_tri_cheir=_count(tri_cheir), num_tri_reproj=_count(tri_reproj),
@@ -447,11 +503,13 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
 
 def track_step(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures, u,
                matches: Optional[match_ops.MatchResult] = None,
-               matcher=None):
+               matcher=None, pnp_gumbel: Optional[torch.Tensor] = None):
     """The standalone per-frame step: `track_step_impl` with the essential
-    RANSAC inside the step on the frame's draws `u` (hypotheses, 8).
-    `matches`: the caller's prev<->cur matches (the learned matcher); None
-    matches by mutual nearest neighbours. `matcher`: the learned matcher of
-    the two re-observation passes (None = mutual-NN)."""
+    RANSAC inside the step on the frame's draws `u` (hypotheses, 8), or
+    under the PnP tracker the PnP RANSAC on its Gumbel draws `pnp_gumbel`
+    (pnp_hypotheses, N; `u` unused, may be None). `matches`: the caller's
+    prev<->cur matches (the learned matcher); None matches by mutual
+    nearest neighbours. `matcher`: the learned matcher of the
+    re-observation passes (None = mutual-NN)."""
     return track_step_impl(cfg, K, state, f, matches=matches,
-                           matcher=matcher, u=u)
+                           matcher=matcher, u=u, pnp_gumbel=pnp_gumbel)

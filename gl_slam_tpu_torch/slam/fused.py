@@ -1,24 +1,27 @@
 """Chunked pipeline: batched extraction, batched prologue, per-frame loop.
 
 Counterpart of gl_slam_tpu/slam/fused.py (centroid, single-view learned
-or pair-conditioned sub-pixel refinement, the pass-1 prologue without
-in-loop recovery), with extraction through the NMS kernel as under the
-reference's `use_pallas_nms=True`. For a chunk of T frames:
+or pair-conditioned sub-pixel refinement, the pass-1 prologue with and
+without in-loop recovery), with extraction through the NMS kernel as under
+the reference's `use_pallas_nms=True`. For a chunk of T frames:
 
   1. the extractor runs batched over the T images (and the single-view
      head, when given, refines each detection there);
   2. a prologue matches all T consecutive pairs at once (one LightGlue
      pass and one fused assignment over a pair axis), refines the current
      keypoints with the pair head when one is given, and runs the pairs'
-     essential RANSACs batched;
+     essential RANSACs batched (none under the PnP tracker);
   3. a Python loop runs the map-dependent tracking step frame by frame
-     (two more LightGlue passes per frame for the re-observations).
+     (two more LightGlue passes per frame for the re-observations, or one
+     in the merged and batched modes).
 
-After a rejected frame, every later frame of the chunk is rejected too
-(its precomputed pair is stale), as the JAX version does under
-every-frame keyframing; the recovery path of motion-gated keyframing is
-not ported yet. A `frame_gate` lets the driver feed a padded tail chunk:
-its padding frames run the whole step but are never accepted.
+A frame after a rejected one finds its precomputed pair stale. Under
+every-frame keyframing it is rejected too, and so is the rest of the
+chunk; under motion-gated keyframing, where rejections are routine, the
+frame is matched again against the last accepted features (the
+recovery branch, taken on the host). A `frame_gate` lets the chunk
+driver (slam/chunk_driver.py) feed a padded tail chunk: its padding
+frames run the whole step but are never accepted.
 """
 
 from __future__ import annotations
@@ -124,8 +127,11 @@ def build_matcher(cfg: SLAMConfig, lg_net):
 def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int,
                    subpix_head=None, prologue: bool = True):
     """fn(state, images (T, H, W), frame_idx0, u (T, hypotheses, 8),
-    frame_gate=None) -> (state, list of T TrackOutputs). `u` holds each
-    pair's RANSAC draws.
+    frame_gate=None, pnp_gumbel=None) -> (state, list of T TrackOutputs,
+    list of T bools: the frames whose pass-1 match took the recovery
+    branch). `u` holds each pair's RANSAC draws; under the PnP tracker no
+    RANSAC runs in the prologue, `u` may be None, and `pnp_gumbel`
+    (T, pnp_hypotheses, N) holds each frame's PnP RANSAC draws.
 
     `frame_gate` (T,) bool force-rejects the frames where it is False (ANDed
     into the acceptance gate): a driver pads a partial tail chunk with
@@ -133,6 +139,21 @@ def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int,
     still run the whole step, matcher passes included. Padding only ever
     trails real frames, so a gated frame leaves the chain of acceptances
     (`ok_prev`) as it was.
+
+    A frame that follows a rejected one finds its precomputed pair stale
+    (matched against the rejected frame). What happens then follows the
+    keyframe policy, as the JAX package's default `prologue_recovery`
+    does:
+      every-frame keyframing (rejection is a tracking failure): the stale
+        frame is rejected too, and so is every later frame of the chunk
+        (the state no longer advances);
+      motion-gated keyframing (`every_frame_keyframe=False`: rejection is
+        routine): the recovery branch matches the frame again against the
+        carried last-accepted features (`state.prev_*`) by mutual nearest
+        neighbours, with the essential RANSAC on the same draws `u[i]` as
+        the prologue's pair. The branch is taken on the host: the
+        previous frame's verdict is read back once per frame after the
+        first of the chunk, the one wait for the card in this mode.
 
     With a SubpixHead the extractor refines every detection (see
     build_extract_fn); the rest of the chunk is that of the centroid.
@@ -145,7 +166,6 @@ def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int,
     state must carry `prev_patches` (init_track_state(patch=...)). The
     refinement needs the batched prologue: `prologue=False` (the JAX
     package's serial layout, not ported) raises."""
-    frontend._check_supported(cfg)
     pair_mode = _pair_mode(subpix_head)
     if pair_mode and not prologue:
         raise ValueError("PairSubpixHead requires prologue=True")
@@ -153,6 +173,8 @@ def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int,
         raise NotImplementedError(
             "the serial layout (prologue=False) is not ported; see "
             "ROADMAP.md")
+    prologue_recovery = not cfg.runtime.every_frame_keyframe
+    use_pnp = cfg.runtime.tracker == "pnp"
     g = cfg.geometry
     thr = cfg.frontend.match_threshold
     extract_batch = build_extract_fn(cfg, sp_net, subpix_head=subpix_head)
@@ -160,8 +182,22 @@ def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int,
     reobs_matcher = lg_match if cfg.frontend.reobs_matcher == "lightglue" \
         else None
 
+    def essential_of(kp0, kp1, m, u):
+        """The essential RANSAC of the matches `m` between keypoints kp0
+        and kp1 (leading pair dimensions allowed)."""
+        pairf = match_ops.score_filter(m.matches0, m.mscores0, thr)
+        uv0, uv1, pairf = match_ops.gather_matched(kp0, kp1, m.matches0,
+                                                   pairf)
+        return essential_mod.estimate_essential(
+            K, uv0, uv1, pairf, u, threshold_px=g.essential_threshold_px,
+            num_hypotheses=g.essential_hypotheses,
+            refine_iters=g.essential_refine_iters)
+
     def chunk_fn(state: frontend.TrackState, images, frame_idx0: int, u,
-                 frame_gate=None):
+                 frame_gate=None, pnp_gumbel=None):
+        if not use_pnp and u is None:
+            raise ValueError("the essential tracker needs the RANSAC draws "
+                             "`u`")
         with record_function("extract"):
             feats = extract_batch(images)
         kpts_b, desc_b, valid_b = feats[:3]
@@ -173,7 +209,6 @@ def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int,
         v0_b = torch.cat([state.prev_valid[None], valid_b[:-1]])
         with record_function("prologue.match"):
             m_b = lg_match(kp0_b, d0_b, v0_b, kpts_b, desc_b, valid_b)
-        pairf = match_ops.score_filter(m_b.matches0, m_b.mscores0, thr)
         if pair_mode:
             # refine the matched current keypoints; pair t-1's refinement
             # of frame t-1 reaches pair t through kp0_b
@@ -182,36 +217,50 @@ def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int,
                                     patches_b[:-1]])
                 kpts_b = pair_refine_scatter(
                     subpix_head, pat0_b, patches_b, d0_b, desc_b, kpts_b,
-                    m_b.matches0, m_b.mscores0, pairf)
+                    m_b.matches0, m_b.mscores0,
+                    match_ops.score_filter(m_b.matches0, m_b.mscores0, thr))
             kp0_b = torch.cat([state.prev_kpts[None], kpts_b[:-1]])
-        uv0, uv1, pairf = match_ops.gather_matched(kp0_b, kpts_b,
-                                                   m_b.matches0, pairf)
-        with record_function("prologue.essential"):
-            ess_b = essential_mod.estimate_essential(
-                K, uv0, uv1, pairf, u,
-                threshold_px=g.essential_threshold_px,
-                num_hypotheses=g.essential_hypotheses,
-                refine_iters=g.essential_refine_iters)
+        ess_b = None
+        if not use_pnp:
+            with record_function("prologue.essential"):
+                ess_b = essential_of(kp0_b, kpts_b, m_b, u)
 
-        outs = []
+        outs, recovered = [], []
         ok_prev = torch.ones((), dtype=torch.bool, device=kpts_b.device)
         frame_ids = torch.arange(frame_idx0, frame_idx0 + chunk,
                                  dtype=torch.int32, device=kpts_b.device)
         for i in range(chunk):
-            gate = ok_prev if frame_gate is None else ok_prev & frame_gate[i]
             f = frontend.FrameFeatures(
                 kpts=kpts_b[i], desc=desc_b[i], valid=valid_b[i],
                 frame_idx=frame_ids[i])
-            m = match_ops.MatchResult(matches0=m_b.matches0[i],
-                                      mscores0=m_b.mscores0[i])
-            ess = essential_mod.EssentialResult(*(x[i] for x in ess_b))
+            fg = None if frame_gate is None else frame_gate[i]
+            if prologue_recovery:
+                # pair 0's partner is the carried state itself
+                recover = i > 0 and not bool(ok_prev)
+                gate = fg
+            else:
+                recover = False
+                gate = ok_prev if fg is None else ok_prev & fg
+            if recover:
+                with record_function("track.recover"):
+                    m = match_ops.mutual_nn_match(
+                        state.prev_desc, state.prev_valid, f.desc, f.valid)
+                    ess = None if use_pnp else essential_of(
+                        state.prev_kpts, f.kpts, m, u[i])
+            else:
+                m = match_ops.MatchResult(matches0=m_b.matches0[i],
+                                          mscores0=m_b.mscores0[i])
+                ess = None if ess_b is None else \
+                    essential_mod.EssentialResult(*(x[i] for x in ess_b))
             state, out = frontend.track_step_impl(
                 cfg, K, state, f, matches=m, ess_result=ess,
                 matcher=reobs_matcher, accept_gate=gate,
-                patches=None if patches_b is None else patches_b[i])
-            ok_prev = out.frame_ok if frame_gate is None \
-                else torch.where(frame_gate[i], out.frame_ok, ok_prev)
+                patches=None if patches_b is None else patches_b[i],
+                pnp_gumbel=None if pnp_gumbel is None else pnp_gumbel[i])
+            ok_prev = out.frame_ok if fg is None \
+                else torch.where(fg, out.frame_ok, ok_prev)
             outs.append(out)
-        return state, outs
+            recovered.append(recover)
+        return state, outs, recovered
 
     return chunk_fn

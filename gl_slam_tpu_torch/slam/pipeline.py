@@ -2,8 +2,8 @@
 
 Counterpart of gl_slam_tpu/slam/pipeline.py. Each `step` runs
 `frontend.track_step` on one frame's features (matching against the
-previous keyframe, the essential RANSAC, the two re-observation passes, the
-pose solve and the keyframe insert), then the backend on its cadence:
+previous keyframe, the essential or PnP RANSAC, the re-observation passes,
+the pose solve and the keyframe insert), then the backend on its cadence:
 every `ba_trigger_keyframes` frames the health check reads the pose, and
 when as many new keyframes have come a sliding-window BA pass runs. With
 `runtime.async_ba` the pass's result is folded into the live state one
@@ -21,11 +21,15 @@ and point counts there, and a loop detection's verdict. A frame's step
 issues its work and returns device tensors.
 
 Randomness: the essential RANSAC takes (hypotheses, 8) uniform draws,
-one set for the bootstrap and one per tracked frame, in that order; each
-loop detection takes its PnP Gumbel draws. By default both come from
-`torch.Generator`s seeded from `seed` (default `cfg.runtime.seed`);
-`draws` and `loop_draws`, iterables of arrays or tensors, replace them (a
-test feeds the JAX package's own draws through them).
+one set for the bootstrap and one per tracked frame, in that order; under
+the PnP tracker (`runtime.tracker="pnp"`) a tracked frame takes no
+essential draws but one (pnp_hypotheses, max_keypoints) Gumbel set for its
+PnP RANSAC, from a stream of its own, so that the essential tracker's
+draws are what they are without it; each loop detection takes its PnP
+Gumbel draws. By default all three come from `torch.Generator`s seeded
+from `seed` (default `cfg.runtime.seed`); `draws`, `pnp_draws` and
+`loop_draws`, iterables of arrays or tensors, replace them (a test feeds
+the JAX package's own draws through them).
 """
 
 from __future__ import annotations
@@ -67,7 +71,8 @@ class TrackingPipeline:
     def __init__(self, cfg: SLAMConfig, K, seed: Optional[int] = None,
                  enable_ba: bool = True, matcher=None, device=None,
                  draws: Optional[Iterable] = None,
-                 loop_draws: Optional[Iterable] = None):
+                 loop_draws: Optional[Iterable] = None,
+                 pnp_draws: Optional[Iterable] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.matcher = matcher
@@ -77,8 +82,11 @@ class TrackingPipeline:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._loop_gen = torch.Generator(device=self.device).manual_seed(
             seed + 1)
+        self._pnp_gen = torch.Generator(device=self.device).manual_seed(
+            seed + 2)
         self._draws = None if draws is None else iter(draws)
         self._loop_draws = None if loop_draws is None else iter(loop_draws)
+        self._pnp_draws = None if pnp_draws is None else iter(pnp_draws)
         self.state: TrackState = frontend.init_track_state(
             cfg, device=self.device)
         self.outputs: List[Any] = []
@@ -100,6 +108,15 @@ class TrackingPipeline:
             return upload(next(self._draws), torch.float32, self.device)
         H = self.cfg.geometry.essential_hypotheses
         return torch.rand((H, 8), generator=self._gen, device=self.device)
+
+    def _pnp_gumbel(self) -> torch.Tensor:
+        """The next (pnp_hypotheses, max_keypoints) PnP RANSAC draw set."""
+        if self._pnp_draws is not None:
+            return upload(next(self._pnp_draws), torch.float32, self.device)
+        cfg = self.cfg
+        return loopclose.pnp_draws(
+            self._pnp_gen, (cfg.geometry.pnp_hypotheses,
+                            cfg.frontend.max_keypoints), device=self.device)
 
     def _loop_gumbel(self) -> torch.Tensor:
         """The PnP draws of one loop detection: (loop_candidates,
@@ -162,9 +179,13 @@ class TrackingPipeline:
         feats = self._features(kpts, desc, valid, frame_idx)
         st = self.state
         m = self._match(st.prev_kpts, st.prev_desc, st.prev_valid, feats)
+        if self.cfg.runtime.tracker == "pnp":
+            u, gumbel = None, self._pnp_gumbel()
+        else:
+            u, gumbel = self._draw(), None
         self.state, out = frontend.track_step(
-            self.cfg, self.K, st, feats, self._draw(), matches=m,
-            matcher=self.matcher)
+            self.cfg, self.K, st, feats, u, matches=m, matcher=self.matcher,
+            pnp_gumbel=gumbel)
         self.outputs.append(out)
         self._maybe_ba()
         self._maybe_loop_close(feats)

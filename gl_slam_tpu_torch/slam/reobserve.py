@@ -1,11 +1,17 @@
 """Map re-observation: synthetic-keypoint matching against the map.
 
-Counterpart of gl_slam_tpu/slam/reobserve.py in its "separate" mode (the
-reference dataflow: the map-window pass and the covisibility pass each run
-their own matcher). Candidate map points are projected into a pose and
-matched, as a synthetic keypoint set carrying each point's latest
-descriptor, against the current frame. The merged and batched modes are
-not ported yet.
+Counterpart of gl_slam_tpu/slam/reobserve.py. Candidate map points are
+projected into a pose and matched, as a synthetic keypoint set carrying
+each point's latest descriptor, against the current frame. Three modes
+(`cfg.map.reobs_mode`):
+
+  * "separate" (the reference dataflow): the map-window pass
+    (`match_map_window`) and the covisibility pass (`match_covisible`) each
+    run their own matcher call;
+  * "merged" (`match_unified`): one pass over the union of both candidate
+    pools, at the predicted pose;
+  * "batched" (`match_batched`): both pools keep their own projection pose
+    and run as ONE matcher call over a leading set axis of 2.
 
 Every top-k here runs on integer keys full of ties and decides which map
 points and keyframes take part, so all of them go through the tie-stable
@@ -42,25 +48,44 @@ def _candidate_points(cfg: SLAMConfig, mstate: MapState, min_last_kf,
     return select_ops.select_newest_ids(eligible, max_candidates)
 
 
-def _match_candidates(cfg, K, mstate, R, t, f, ids, cmask, matcher):
-    """Project candidate points `ids` at pose (R, t), match them against
-    frame `f` and scatter the accepted point ids onto its keypoint rows."""
-    N = f.kpts.shape[0]
+def _project_and_match(cfg, K, mstate, R, t, f, ids, cmask, matcher):
+    """Project candidate points `ids` (..., M) at poses R (..., 3, 3),
+    t (..., 3) and match each set against frame `f` in one matcher call
+    (leading set dimensions allowed) -> (visible (..., M), accepted
+    (..., M), matches0 (..., M))."""
     idx = ids.long()
     uv, _, front = projection.project(K, R, t, mstate.pts_xyz[idx])
     vis = cmask & front & projection.in_image(
         uv, cfg.frontend.image_height, cfg.frontend.image_width)
     desc = mstate.pts_desc[idx].to(f.desc.dtype)
+    lead = ids.shape[:-1]
+    kp, d1, v1 = (x.expand(*lead, *x.shape)
+                  for x in (f.kpts, f.desc, f.valid))
     if matcher is None:
-        m = match_ops.mutual_nn_match(desc, vis, f.desc, f.valid)
+        m = match_ops.mutual_nn_match(desc, vis, d1, v1)
     else:
-        m = matcher(uv, desc, vis, f.kpts, f.desc, f.valid)
+        m = matcher(uv, desc, vis, kp, d1, v1)
     good = match_ops.score_filter(m.matches0, m.mscores0,
                                   cfg.frontend.map_match_threshold)
-    cur_rows = torch.where(good, m.matches0, N)
-    reobs = _scatter(torch.full((N,), -1, dtype=_I32, device=f.kpts.device),
-                     cur_rows, torch.where(good, ids, -1))
-    return ReobserveResult(reobs_mpid=reobs,
+    return vis, good, m.matches0
+
+
+def _scatter_hits(reobs, ids, good, matches0):
+    """Write the accepted point ids onto their current keypoint rows."""
+    N = reobs.shape[0]
+    return _scatter(reobs, torch.where(good, matches0, N),
+                    torch.where(good, ids, -1))
+
+
+def _match_candidates(cfg, K, mstate, R, t, f, ids, cmask, matcher):
+    """Project candidate points `ids` at pose (R, t), match them against
+    frame `f` and scatter the accepted point ids onto its keypoint rows."""
+    vis, good, matches0 = _project_and_match(cfg, K, mstate, R, t, f, ids,
+                                             cmask, matcher)
+    none = torch.full((f.kpts.shape[0],), -1, dtype=_I32,
+                      device=f.kpts.device)
+    return ReobserveResult(reobs_mpid=_scatter_hits(none, ids, good,
+                                                    matches0),
                            num_candidates=vis.to(_I32).sum(dtype=_I32))
 
 
@@ -106,17 +131,68 @@ def _covis_member(cfg: SLAMConfig, mstate: MapState,
                     torch.where(flat >= 0, flat, Pmax), True)
 
 
+def _covis_candidates(cfg, mstate, seed_mpid, exclude_mpid, window=None):
+    """Up to `covis_max_points` points of the covisibility expansion of
+    `seed_mpid` (or'ed with the membership `window`), minus the points
+    `exclude_mpid`, newest-created first -> (ids, mask)."""
+    member = _covis_member(cfg, mstate, seed_mpid)
+    if window is not None:
+        member = window | member
+    member = _scatter(member, torch.where(exclude_mpid >= 0, exclude_mpid,
+                                          mstate.capacity_pts), False)
+    eligible = member & mstate.pts_valid & ~mstate.pts_bad
+    return select_ops.select_newest_ids(eligible, cfg.map.covis_max_points)
+
+
 def match_covisible(cfg: SLAMConfig, K, mstate: MapState, R_pred, t_pred, f,
                     seed_mpid, already_mpid, matcher=None) -> ReobserveResult:
     """Covisibility retrieval: the expansion of the currently matched
     points, minus points already matched this frame, projected at the
     predicted pose and matched against the current frame."""
-    Pmax = mstate.capacity_pts
-    member = _covis_member(cfg, mstate, seed_mpid)
-    member = _scatter(member, torch.where(already_mpid >= 0, already_mpid,
-                                          Pmax), False)
-    eligible = member & mstate.pts_valid & ~mstate.pts_bad
-    cand, cmask = select_ops.select_newest_ids(eligible,
-                                               cfg.map.covis_max_points)
+    cand, cmask = _covis_candidates(cfg, mstate, seed_mpid, already_mpid)
     return _match_candidates(cfg, K, mstate, R_pred, t_pred, f, cand, cmask,
                              matcher)
+
+
+def match_unified(cfg: SLAMConfig, K, mstate: MapState, R_pred, t_pred, f,
+                  seed_mpid, matcher=None) -> ReobserveResult:
+    """Merged re-observation (`reobs_mode="merged"`): ONE pass over the
+    union of the map window (points last seen in the window's keyframes
+    before the previous one) and the covisibility expansion of
+    `seed_mpid`, minus the seed points, projected at the PREDICTED pose."""
+    prev_kf = mstate.num_kf - 1
+    lo = torch.clamp(prev_kf - cfg.map.map_match_window, min=0)
+    window = (mstate.pts_last_kf >= lo) & (mstate.pts_last_kf <= prev_kf - 1)
+    cand, cmask = _covis_candidates(cfg, mstate, seed_mpid, seed_mpid,
+                                    window=window)
+    return _match_candidates(cfg, K, mstate, R_pred, t_pred, f, cand, cmask,
+                             matcher)
+
+
+def match_batched(cfg: SLAMConfig, K, mstate: MapState, R_prev, t_prev,
+                  R_pred, t_pred, f, seed_mpid,
+                  matcher=None) -> ReobserveResult:
+    """Both re-observation passes as ONE matcher call over a leading set
+    axis of 2 (`reobs_mode="batched"`): the window set projected at the
+    PREVIOUS pose (as match_map_window), the covisibility set at the
+    PREDICTED pose (as match_covisible, but without excluding the window
+    pass's hits: that exclusion is what makes the separate passes serial).
+    The seed points are excluded from the covisibility pool. Covisibility
+    hits are written first and window hits second, so a window hit wins a
+    keypoint both sets matched."""
+    prev_kf = mstate.num_kf - 1
+    lo = torch.clamp(prev_kf - cfg.map.map_match_window, min=0)
+    ids_w, mask_w = _candidate_points(cfg, mstate, lo, prev_kf - 1,
+                                      cfg.map.covis_max_points)
+    ids_c, mask_c = _covis_candidates(cfg, mstate, seed_mpid, seed_mpid)
+    ids2 = torch.stack([ids_w, ids_c.to(ids_w.dtype)])
+    vis, good, matches0 = _project_and_match(
+        cfg, K, mstate, torch.stack([R_prev, R_pred]),
+        torch.stack([t_prev, t_pred]), f, ids2, torch.stack([mask_w, mask_c]),
+        matcher)
+    reobs = torch.full((f.kpts.shape[0],), -1, dtype=_I32,
+                       device=f.kpts.device)
+    reobs = _scatter_hits(reobs, ids2[1], good[1], matches0[1])
+    reobs = _scatter_hits(reobs, ids2[0], good[0], matches0[0])
+    return ReobserveResult(reobs_mpid=reobs,
+                           num_candidates=vis.to(_I32).sum(dtype=_I32))

@@ -119,18 +119,23 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
                     stack: Optional[np.ndarray] = None,
                     diag_out: Optional[dict] = None,
                     ba_diag: bool = False, subpix=None,
-                    domain: str = "clean") -> E2EResult:
+                    domain: str = "clean",
+                    pnp_draws: Optional[Callable[[int], torch.Tensor]] = None
+                    ) -> E2EResult:
     """Bootstrap on frames 0-1, then track whole chunks of `chunk` frames of
     `scene`, with a window BA pass every `ba_every` frames (rounded to whole
     chunks) when `cfg.runtime.run_full_ba` is on, and the loop-closure
     checks when `cfg.runtime.loop_closing` is on; ATE-RMSE of the keyframe
     camera centres against ground truth. `stack`: pre-rendered frames
     (else rendered here in `domain`, outside the timed region). `draws`
-    replaces the pipeline's RANSAC draws (ChunkedPipeline). fps counts the
+    and `pnp_draws` replace the pipeline's essential and PnP RANSAC draws
+    (ChunkedPipeline). fps counts the
     tracked frames after the bootstrap over the host wall time up to the
     final device synchronisation. `diag_out` receives the per-frame
     outputs, the trajectory, the final tracking state, the recovery count,
-    the state's size in bytes, `loop_events` (one dict per applied
+    `recovery_frames` (the frames whose pass-1 match took the chunk's
+    recovery branch), the state's size in bytes, `loop_events` (one dict
+    per applied
     closure) and `loop_checks` (per detection: the frame count, the
     LoopDetection, the host ms to issue it). `ba_diag` (off by default: it
     adds two reprojection passes to every BA) also puts there, per BA
@@ -147,7 +152,7 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
                              domain=domain)
     pipe = ChunkedPipeline(cfg, scene.K, sp, lg, chunk=chunk,
                            ba_every=ba_every, seed=seed, device=dev,
-                           draws=draws,
+                           draws=draws, pnp_draws=pnp_draws,
                            ba_diag=diag_out is not None and ba_diag,
                            subpix_head=subpix)
     c0 = -scene.poses_R[0].T @ scene.poses_t[0]
@@ -174,6 +179,7 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
         diag_out.update(
             outputs=o, R=R_est, t=t_est, frame_idx=fidx, state=pipe.state,
             num_recoveries=pipe.num_recoveries,
+            recovery_frames=pipe.recovery_frames,
             loop_events=pipe.loop_events, loop_checks=pipe.loop_checks,
             state_bytes=sum(x.numel() * x.element_size() for x in
                             (*pipe.state.map, *pipe.state[1:])

@@ -62,21 +62,28 @@ def _loop_diag(diag: dict) -> dict:
 def flagship_eval(ckpt_dir: str, frames: int = 120, seed: int = 101,
                   landmarks: int = 20000, chunk: int = 8,
                   motion: str = "forward_turn", subpix: str = "pair",
-                  domain: str = "clean", device=None, warmup: bool = True,
+                  domain: str = "clean", reobs_mode: str = "separate",
+                  device=None, warmup: bool = True,
                   diag_out: Optional[dict] = None) -> dict:
     """The flagship scenario: `flagship_config()` (376x1241, N=2048,
     D=256, 9-layer matcher on all three passes, loop closing on), the
     committed flagship weights, window BA every 8 frames, over a held-out
     rendered sequence; ATE and tracked fps from the same run. `subpix`:
     "pair" (the learned pair head), "single" (the single-view head) or
-    "centroid". `warmup` first tracks
+    "centroid". `reobs_mode`: the re-observation passes, "separate" (the
+    reference's LightGlue x3 a frame), "merged" or "batched" (x2; see
+    slam/reobserve.py). `warmup` first tracks
     the bootstrap plus one chunk (cuDNN plans, allocator) outside the
     measured run. `diag_out` receives run_learned_e2e's diagnostics."""
     dev = resolve_device(device)
-    cfg = flagship_config()
-    sp, lg = e2e.load_flagship_frontend(ckpt_dir, device=dev)
     if subpix not in ("pair", "single", "centroid"):
         raise ValueError(f"subpix={subpix!r}")
+    if reobs_mode not in ("separate", "merged", "batched"):
+        raise ValueError(f"reobs_mode={reobs_mode!r}")
+    cfg = flagship_config()
+    cfg = dataclasses.replace(cfg, map=dataclasses.replace(
+        cfg.map, reobs_mode=reobs_mode))
+    sp, lg = e2e.load_flagship_frontend(ckpt_dir, device=dev)
     head = None
     if subpix != "centroid":
         head = e2e.load_flagship_subpix(ckpt_dir, pair=subpix == "pair",
@@ -103,8 +110,9 @@ def flagship_eval(ckpt_dir: str, frames: int = 120, seed: int = 101,
     traj_len = float(frames)          # ~1 m per frame
     return dict(
         config=("flagship: 376x1241, N=2048, D=256, 9-layer matcher, "
-                "LightGlue x3 passes, trained flagship weights, "
-                f"subpix={subpix}, reobs=separate, domain={domain}, "
+                f"LightGlue x{3 if reobs_mode == 'separate' else 2} passes, "
+                f"trained flagship weights, subpix={subpix}, "
+                f"reobs={reobs_mode}, domain={domain}, "
                 f"loop_closing=on, {frames}-frame held-out sequence "
                 f"(seed {seed}, {motion}), PyTorch/CUDA port"),
         device=device_line(dev),

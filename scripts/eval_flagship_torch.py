@@ -2,7 +2,8 @@
 one run.
 
 Tracks the 120-frame held-out flagship sequence (376x1241, N=2048, D=256,
-the 9-layer matcher on all three passes per frame, the committed flagship
+the 9-layer matcher on all three passes per frame (two with --reobs-mode
+merged or batched), the committed flagship
 weights and sub-pixel head (pair by default; --subpix single or
 centroid), window BA every 8 frames, loop closing on, in the clean or the
 hard photometric domain) through
@@ -14,6 +15,8 @@ the bounds of tests/test_flagship_e2e.py.
 
     python scripts/eval_flagship_torch.py            # on the card
     python scripts/eval_flagship_torch.py --domain hard
+    python scripts/eval_flagship_torch.py --reobs-mode batched \
+        --out FLAGSHIP_EVAL_BATCHED_TORCH.json
     python scripts/eval_flagship_torch.py --device cpu --frames 26
 """
 
@@ -36,6 +39,12 @@ def main():
     ap.add_argument("--motion", default="forward_turn")
     ap.add_argument("--subpix", default="pair",
                     choices=["pair", "single", "centroid"])
+    ap.add_argument("--reobs-mode", default="separate",
+                    choices=["separate", "merged", "batched"],
+                    help="the re-observation passes: separate (LightGlue "
+                         "x3 a frame, as the reference), merged (one pass "
+                         "over the union of both candidate pools) or "
+                         "batched (both pools in one batch-2 call)")
     ap.add_argument("--domain", default="clean", choices=["clean", "hard"])
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' to run on the CPU")
@@ -55,7 +64,8 @@ def main():
     report = evals.flagship_eval(
         args.ckpt, frames=args.frames, seed=args.seed,
         landmarks=args.landmarks, chunk=args.chunk, motion=args.motion,
-        subpix=args.subpix, domain=args.domain, device=args.device)
+        subpix=args.subpix, domain=args.domain, reobs_mode=args.reobs_mode,
+        device=args.device)
     print(json.dumps(report))
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

@@ -32,14 +32,19 @@ def cuda_device():
 # empties the first split with Nk not a multiple of S x the key tile;
 # Nq < 64 split 8 ways; the loop detector's four shapes (2 candidates x 2
 # heads, a 256-row keyframe database against a 2048-keypoint frame), with
-# the first candidate's keys all masked.
+# the first candidate's keys all masked; the batched re-observation mode's
+# (the window and covisibility sets of 1024 points on a leading axis of 2
+# against the 2048-keypoint frame, whose self-attention is the (2,) 2048 x
+# 2048 case above).
 ATTN_CASES = [((3,), 100, 70, 128, False), ((), 64, 200, 64, False),
               ((2, 2), 17, 9, 32, False),
               ((), 1024, 1024, 128, False), ((), 2048, 2048, 128, False),
               ((), 1024, 2048, 128, False), ((), 2048, 1024, 128, False),
               ((), 1024, 1000, 128, True), ((), 40, 900, 128, False),
               ((2,), 256, 256, 128, False), ((2,), 2048, 2048, 128, False),
-              ((2,), 256, 2048, 128, False), ((2,), 2048, 256, 128, False)]
+              ((2,), 256, 2048, 128, False), ((2,), 2048, 256, 128, False),
+              ((2,), 1024, 1024, 128, False), ((2,), 1024, 2048, 128, False),
+              ((2,), 2048, 1024, 128, False)]
 
 
 @pytest.mark.parametrize("lead,Nq,Nk,dh,masked", ATTN_CASES)
@@ -87,11 +92,14 @@ def _asg_inputs(rng, B, N, M, Df):
 
 
 # (B, N, M, Df): the three path shapes (chunk prologue, bootstrap,
-# re-observation; the last two split their columns over 4 and 8 CTAs), N
-# and M that are multiples of no tile (split and unsplit), each feature
-# dim; the last pair of every B > 1 case has every row and column masked.
+# re-observation; the last two split their columns over 4 and 8 CTAs), the
+# batched re-observation mode's two (the 1024-point sets on a leading axis
+# of 2, and 2048-point sets), N and M that are multiples of no tile (split
+# and unsplit), each feature dim; the last pair of every B > 1 case has
+# every row and column masked.
 ASG_CASES = [(8, 2048, 2048, 256), (1, 2048, 2048, 256),
-             (1, 1024, 2048, 256), (2, 130, 90, 256), (1, 64, 300, 128),
+             (1, 1024, 2048, 256), (2, 1024, 2048, 256),
+             (2, 2048, 2048, 256), (2, 130, 90, 256), (1, 64, 300, 128),
              (3, 1000, 777, 64), (1, 200, 1000, 128), (1, 40, 65, 256)]
 
 
@@ -638,6 +646,98 @@ def test_a_loop_check_does_not_wait_for_the_card(cuda_device):
     event.synchronize()
     assert bool(host_ok) == bool(det.ok.cpu())
     assert [c["frames"] for c in pipe.loop_checks] == [18, 18]
+
+
+def _tiny_chunked(cuda_device, map_kw=None, runtime_kw=None):
+    """The tiny pipeline on the card (bfloat16 networks, 240x320, N=128,
+    chunks of 5 with BA every 5, loop closing off) with config overrides,
+    bootstrapped on a rendered scene -> (pipe, stack)."""
+    import dataclasses
+    import os
+
+    from gl_slam_tpu_torch import config as t_cfg
+    from gl_slam_tpu_torch.io import synthetic
+    from gl_slam_tpu_torch.slam.chunk_driver import ChunkedPipeline
+    from gl_slam_tpu_torch.train import e2e
+
+    ckpt = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
+    H, W, N, D = 240, 320, 128, t_cfg.TINY_DESC_DIM
+    cfg = t_cfg.micro_config(H, W, N, D)
+    cfg = cfg.replace(
+        map=dataclasses.replace(cfg.map, **(map_kw or {})),
+        runtime=dataclasses.replace(cfg.runtime, loop_closing=False,
+                                    **(runtime_kw or {})))
+    scene = synthetic.make_scene(num_landmarks=900, num_frames=12, height=H,
+                                 width=W, desc_dim=D, seed=11)
+    stack = e2e.render_stack(scene, 12, N)
+    sp, lg = e2e.load_tiny_frontend(ckpt, device=cuda_device)
+    pipe = ChunkedPipeline(cfg, scene.K, sp, lg, chunk=5, ba_every=5,
+                           device=cuda_device)
+    c = [-scene.poses_R[i].T @ scene.poses_t[i] for i in (0, 1)]
+    pipe.bootstrap_from_images(stack[0], stack[1],
+                               float(np.linalg.norm(c[1] - c[0])))
+    return pipe, stack
+
+
+@pytest.mark.parametrize("map_kw,runtime_kw", [
+    (dict(reobs_mode="merged"), {}), (dict(reobs_mode="batched"), {}),
+    ({}, dict(tracker="pnp"))], ids=["merged", "batched", "pnp"])
+def test_option_chunk_loop_does_not_wait_for_the_card(cuda_device, map_kw,
+                                                      runtime_kw):
+    """A chunk and its BA pass in the merged and batched re-observation
+    modes and under the PnP tracker, after a first chunk, run under
+    PyTorch's sync debug mode, which raises on an operation that makes the
+    host wait for the stream."""
+    pipe, stack = _tiny_chunked(cuda_device, map_kw, runtime_kw)
+    pipe.track_chunk(stack[2:7])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipe.track_chunk(stack[7:12])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pipe.finish()
+    o = pipe.stacked_outputs()
+    assert o.frame_ok.all() and pipe.num_ba_runs == 2
+    assert np.isfinite(o.t).all() and pipe.recovery_frames == []
+
+
+def test_motion_gated_chunk_loop_reads_the_card_once_a_frame(cuda_device):
+    """Under motion gating with filters no frame passes, every frame of a
+    chunk but the first takes the recovery branch, whose verdict read is
+    the one host wait: exactly one per such frame, all in the chunk loop
+    (slam/fused.py), none elsewhere (PyTorch's sync debug mode in "warn",
+    with the Python stack of each warning)."""
+    import os
+    import traceback
+    import warnings
+
+    pipe, stack = _tiny_chunked(cuda_device, runtime_kw=dict(
+        every_frame_keyframe=False, gt_mag_filter=1e6, gt_rot_filter=1e6))
+    pipe.track_chunk(stack[2:7])
+    torch.cuda.synchronize()
+    seen = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            seen.append([f"{os.path.basename(f.filename)}:{f.name}"
+                         for f in traceback.extract_stack()])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pipe.track_chunk(stack[7:12])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    pipe.finish()
+    assert len(seen) == 5 - 1, seen
+    assert all("fused.py:chunk_fn" in stack for stack in seen), seen
+    assert pipe.recovery_frames == [3, 4, 5, 6, 8, 9, 10, 11]
+    o = pipe.stacked_outputs()
+    assert not o.frame_ok.any() and int(pipe.state.map.num_kf) == 2
+    assert pipe.num_recoveries == 0 and np.isfinite(o.t).all()
 
 
 def test_kernels_reject_what_they_do_not_take(cuda_device):

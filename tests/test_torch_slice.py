@@ -286,9 +286,9 @@ def test_tail_chunk_final_state_matches_jax(tail_runs):
 
 
 def test_backend_stages_raise_instead_of_skipping():
-    """Every backend stage runs, loop closing included; what is not ported
-    (the PnP tracker) raises instead of being skipped, and so does a
-    sub-pixel head that is neither of the two heads."""
+    """Every backend stage runs, loop closing included; the PnP tracker
+    builds with its own draws; a sub-pixel head that is neither of the two
+    heads raises instead of being skipped."""
     cfg = t_cfg.micro_config(H, W, N, 64)
     sp, lg = t_e2e.load_tiny_frontend(CKPT, device="cpu",
                                       dtype=torch.float32)
@@ -301,8 +301,9 @@ def test_backend_stages_raise_instead_of_skipping():
                         subpix_head=object())
     pnp = cfg.replace(runtime=dataclasses.replace(cfg.runtime,
                                                   tracker="pnp"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ChunkedPipeline(pnp, np.eye(3), sp, lg, device="cpu")
+    pnp_pipe = ChunkedPipeline(pnp, np.eye(3), sp, lg, device="cpu")
+    assert tuple(pnp_pipe.pnp_draw(2).shape) == (
+        2, cfg.geometry.pnp_hypotheses, cfg.frontend.max_keypoints)
     pipe = ChunkedPipeline(_backend(cfg, ba=True), np.eye(3), sp, lg,
                            device="cpu")
     assert pipe.enable_ba and pipe.num_ba_runs == 0
