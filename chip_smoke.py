@@ -63,14 +63,28 @@ Phases (any failure exits non-zero and prints no result line):
      kept; every tracked frame but a chunk's first takes the recovery
      branch); each held to the launch counts its mode implies, 0
      health-check recoveries, a finite state and, but for the last, phase
-     3's guards; the batched run profiled once.
+     3's guards; the batched run profiled once;
+ 10. multi-stream tracking on the stream axis (gl_slam_tpu_torch.parallel,
+     slam/fused.build_multistream_chunk_fn) at flagship width: four
+     streams, phase 3's frames at offsets 0, 2, 4 and 6, each with its own
+     RANSAC draws, bootstrapped through MultiStreamTracker.bootstrap on
+     extracted features, then two multi-stream chunks of 8 with a
+     stream-batched window BA after each; every stream keeps all its frames
+     with no recovery-branch frame, its ATE (in its first frame's camera
+     coordinates) within phase 3's bound, and its keyframe poses within
+     the bound stated there of its own single-stream run on the same
+     draws; attention and assignment launch as often per chunk as for one
+     stream; then one chunk at 16 streams (BASELINE configs[4]), with the
+     peak memory and the launch counts.
 Phase 2 also holds attention and the assignment at the loop detector's
 shapes (2 candidates' 256-row keyframe databases against the 2048-keypoint
 frame, random database masks, one empty database) and at the per-frame
 route's (one pair of 2048-keypoint sets; NMS of one map at radius 3 and of
 a Harris response at radius 4), and at the batched re-observation
 mode's (the window and covisibility sets, 1024 points each, on a leading
-set axis of 2 against the 2048-keypoint frame).
+set axis of 2 against the 2048-keypoint frame), and at the multi-stream
+chunk's with 4 and 16 streams (the prologue's S x 8 pairs, S
+re-observation sets; NMS of 16 maps, extraction in groups of 2 streams).
 The line before the last is the `kernels` JSON; the last line is the
 device JSON. Details go to chiprun_out/chip_smoke.json.
 """
@@ -116,6 +130,15 @@ DONE_FRAMES = 120                 # the flagship eval's sequence (phase 6)
 # real frames padded to a chunk.
 CLI_FRAMES = 2 + 3 * CHUNK + 5
 CLI_CHUNKS = 4
+# Multi-stream tracking (phase 10): four streams at these offsets into
+# phase 3's frames, two chunks each; then one chunk at 16 streams
+# (BASELINE configs[4]), extraction in groups of 2 streams. Phase 2 holds
+# the kernels at both stream counts.
+MS_OFFSETS = (0, 2, 4, 6)
+MS_CHUNKS = 2
+MS_BIG = 16
+MS_BIG_GROUP = 2
+MS_STREAMS = (len(MS_OFFSETS), MS_BIG)
 
 
 def expected_launches(n_chunks, reobs_mode="separate"):
@@ -272,6 +295,23 @@ def attention_cases(torch, gen, dev):
     counts = torch.randint(N // 2, N + 1, (S,), generator=gen, device=dev)
     mask = torch.arange(N, device=dev) < counts[:, None]
     cases.append((f"per-frame {S}x{HEADS}x{N}x{N}", q, k, v, mask))
+    # The multi-stream chunk (phase 10): the prologue's streams x 8 pairs x
+    # 2 sets, ragged, and the re-observation calls with the streams in
+    # front, each stream its own mask.
+    for ns in MS_STREAMS:
+        q, k, v = needle_qkv(torch, rnd, (ns, T, S), N, N)
+        counts = torch.randint(N // 2, N + 1, (ns, T, S), generator=gen,
+                               device=dev)
+        counts[0, 2, 1] = 5
+        mask = torch.arange(N, device=dev) < counts[..., None]
+        mask[-1, 0, 1] = False
+        cases.append((f"streams prologue {ns}x{T}x{S}x{HEADS}x{N}x{N}", q, k,
+                      v, mask))
+        for nq, nk in ((M, M), (N, N), (M, N), (N, M)):
+            q, k, v = needle_qkv(torch, rnd, (ns,), nq, nk)
+            mask = torch.rand(ns, nk, generator=gen, device=dev) < 0.8
+            cases.append((f"streams reobs {ns}x{HEADS}x{nq}x{nk}", q, k, v,
+                          mask))
     return cases
 
 
@@ -357,7 +397,11 @@ def assignment_cases(torch, gen, dev):
             (f"batched 2x{M_REOBS}x{N_KPTS}", 2, M_REOBS, N_KPTS),
             (f"batched 2x{N_KPTS}x{N_KPTS}", 2, N_KPTS, N_KPTS),
             (f"detect {LOOP_CANDS}x{LOOP_DB}x{N_KPTS}", LOOP_CANDS, LOOP_DB,
-             N_KPTS)):
+             N_KPTS),
+            *((f"streams prologue {ns * CHUNK}x{N_KPTS}x{N_KPTS}",
+               ns * CHUNK, N_KPTS, N_KPTS) for ns in MS_STREAMS),
+            *((f"streams reobs {ns}x{M_REOBS}x{N_KPTS}", ns, M_REOBS,
+               N_KPTS) for ns in MS_STREAMS)):
         f0 = (rnd(B, N, FEAT_DIM) / 4).to(torch.bfloat16)
         f1 = (rnd(B, M, FEAT_DIM) / 4).to(torch.bfloat16)
         z0, z1 = rnd(B, N), rnd(B, M)
@@ -456,7 +500,8 @@ def check_assignment(torch, gen, dev, report):
 
 def nms_cases(torch, gen, dev, cfg, sp, stack):
     """(name, heat (B, H, W) f32, radius) at the batch sizes the tracker
-    extracts at (8 per chunk and 2 at the bootstrap, 376 x 1248, r 4; 1 on
+    extracts at (8 per chunk and 2 at the bootstrap, 376 x 1248, r 4; 16
+    for a chunk of a group of 2 streams on the multi-stream path; 1 on
     the per-frame route at the command line's r 3; Harris's response of
     one 376 x 1241 frame at r 4): a quantised random map (ties everywhere)
     with exact zeros, plateaus that touch the image border and plateaus
@@ -473,7 +518,8 @@ def nms_cases(torch, gen, dev, cfg, sp, stack):
     H8, W8 = H + (-H) % 8, W + (-W) % 8
     cases = []
     for B, r, Hc, Wc in ((CHUNK, NMS_RADIUS, H8, W8), (2, NMS_RADIUS, H8, W8),
-                         (1, PF_NMS_RADIUS, H8, W8), (1, HARRIS_RADIUS, H, W)):
+                         (1, PF_NMS_RADIUS, H8, W8), (1, HARRIS_RADIUS, H, W),
+                         (MS_BIG_GROUP * CHUNK, NMS_RADIUS, H8, W8)):
         heat = torch.rand(B, Hc, Wc, generator=gen, device=dev)
         heat = torch.round(heat * 64) / 64
         heat[torch.rand(B, Hc, Wc, generator=gen, device=dev) < 0.3] = 0.0
@@ -1402,6 +1448,242 @@ def run_per_frame(torch, details, data):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: multi-stream tracking on the stream axis
+
+def _stream_draws(torch, dev, n_streams, n_chunks, hyp, seed):
+    """Each stream's RANSAC draws from a generator of its own: the
+    bootstrap's (S, hyp, 8) and each chunk's (S, T, hyp, 8)."""
+    boot, chunks = [], [[] for _ in range(n_chunks)]
+    for s in range(n_streams):
+        g = torch.Generator(device=dev).manual_seed(seed + s)
+        boot.append(torch.rand((hyp, 8), generator=g, device=dev))
+        for c in range(n_chunks):
+            chunks[c].append(torch.rand((CHUNK, hyp, 8), generator=g,
+                                        device=dev))
+    return torch.stack(boot), [torch.stack(c) for c in chunks]
+
+
+def _gt_scale(scene, o):
+    import numpy as np
+    c = [-scene.poses_R[i].T @ scene.poses_t[i] for i in (o, o + 1)]
+    return float(np.linalg.norm(c[1] - c[0]))
+
+
+def _stream_ate(scene, R, t, n, o):
+    """ATE (m) of a stream's first n keyframes (its frame i is scene frame
+    o + i) against the ground truth in the camera coordinates of scene
+    frame o, where the stream's bootstrap puts its first keyframe."""
+    import numpy as np
+    c_est = np.einsum('kij,kj->ki', R[:n].transpose(0, 2, 1), -t[:n])
+    R0, t0 = scene.poses_R[o], scene.poses_t[o]
+    c_gt = np.stack([R0 @ (-scene.poses_R[o + i].T @ scene.poses_t[o + i])
+                     + t0 for i in range(n)])
+    return float(np.sqrt(((c_est - c_gt) ** 2).sum(1).mean()))
+
+
+def run_multistream(torch, dev, details, cfg, sp, lg, scene, stack):
+    """This slice's path: S streams through MultiStreamTracker's bootstrap,
+    multi-stream chunks (slam/fused.build_multistream_chunk_fn) and the
+    tracker's stream-batched window BA; each stream held to its own
+    single-stream run (the same extraction batches, draws and window)."""
+    import numpy as np
+
+    from gl_slam_tpu_torch.ops import _build
+    from gl_slam_tpu_torch.parallel.multistream import MultiStreamTracker
+    from gl_slam_tpu_torch.slam import ba as ba_mod
+    from gl_slam_tpu_torch.slam import frontend, fused
+    from gl_slam_tpu_torch.slam.state import _at
+
+    K = torch.as_tensor(scene.K, dtype=torch.float32, device=dev)
+    hyp = cfg.geometry.essential_hypotheses
+    frames = torch.from_numpy(stack).to(dev)
+    extract = fused.build_extract_fn(cfg, sp)
+    win_kf = CHUNK + cfg.ba.full_ba_overlap
+
+    def boot_feats(offsets, group):
+        """Features of each stream's frames 0 and 1, one extraction per
+        group of streams -> two (S, N, ...) tuples."""
+        per = []
+        for j in range(0, len(offsets), group):
+            imgs = torch.stack([frames[o + i] for o in offsets[j:j + group]
+                                for i in (0, 1)])
+            per.append(extract(imgs))
+        kp, de, va = (torch.cat([f[k] for f in per]).unflatten(0, (-1, 2))
+                      for k in range(3))
+        return (kp[:, 0], de[:, 0], va[:, 0]), (kp[:, 1], de[:, 1], va[:, 1])
+
+    def ms_run(offsets, n_chunks, group, u_boot, u_chunks):
+        S = len(offsets)
+        tr = MultiStreamTracker(cfg, scene.K, S, device=dev)
+        f0, f1 = boot_feats(offsets, group)
+        tr.bootstrap(f0, f1, [_gt_scale(scene, o) for o in offsets],
+                     u=u_boot)
+        fn = fused.build_multistream_chunk_fn(cfg, sp, lg, scene.K, CHUNK, S,
+                                              extract_group=group)
+        outs, recs = [], []
+        for c in range(n_chunks):
+            a = 2 + c * CHUNK
+            imgs = torch.stack([frames[o + a:o + a + CHUNK] for o in offsets])
+            st, o_c, r_c = fn(tr.state, imgs, a, u_chunks[c])
+            tr.state = st
+            nk = st.map.num_kf
+            first = torch.clamp_min(nk - win_kf, 0)
+            tr.ba(first, nk - first)
+            outs += o_c
+            recs += r_c
+        tr.block()
+        return tr, outs, recs
+
+    def single_run(o, u_boot, u_chunks, n_chunks):
+        """One stream through the unbatched functions."""
+        st = frontend.init_track_state(cfg, device=dev)
+        f0, f1 = boot_feats([o], 1)
+        st, _ = frontend.bootstrap_step(
+            cfg, K, st,
+            frontend.FrameFeatures(*(x[0] for x in f0), torch.zeros(
+                (), dtype=torch.int32, device=dev)),
+            frontend.FrameFeatures(*(x[0] for x in f1), torch.ones(
+                (), dtype=torch.int32, device=dev)),
+            torch.tensor(_gt_scale(scene, o), device=dev), u=u_boot)
+        fn = fused.build_chunk_fn(cfg, sp, lg, K, CHUNK)
+        outs = []
+        for c in range(n_chunks):
+            a = 2 + c * CHUNK
+            st, o_c, _ = fn(st, frames[o + a:o + a + CHUNK], a, u_chunks[c])
+            nk = st.map.num_kf
+            first = torch.clamp_min(nk - win_kf, 0)
+            m = ba_mod.ba_step(cfg, K, st.map, first, nk - first)
+            idx = torch.clamp(m.num_kf - 1, 0, m.capacity_kf - 1)
+            st = st._replace(map=m, R_cur=_at(m.kf_R, idx),
+                             t_cur=_at(m.kf_t, idx))
+            outs += o_c
+        return st, outs
+
+    S = len(MS_OFFSETS)
+    n_kf = 2 + MS_CHUNKS * CHUNK
+    u_boot, u_chunks = _stream_draws(torch, dev, S, MS_CHUNKS, hyp, 1000)
+    per_chunk = {k: v - expected_launches(0)[k]
+                 for k, v in expected_launches(1).items()}
+    # warm-up (first calls at the stream-batched shapes), then the counted
+    # run: launch counters set to 0 just before it and read just after
+    ms_run(MS_OFFSETS, 1, 1, u_boot, u_chunks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr, outs, recs = ms_run(MS_OFFSETS, MS_CHUNKS, 1, u_boot, u_chunks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"attention": MS_CHUNKS * per_chunk["attention"],
+            "assignment": MS_CHUNKS * per_chunk["assignment"],
+            "nms": S + MS_CHUNKS * S}
+    st = tr.state
+    ok = torch.stack([o.frame_ok for o in outs]).cpu().numpy()    # (T, S)
+    n_rec = int(np.asarray(recs).sum())
+    kR, kt = st.map.kf_R.cpu().numpy(), st.map.kf_t.cpu().numpy()
+    num_kf = st.map.num_kf.cpu().numpy()
+    print(f"  {S} streams at offsets {list(MS_OFFSETS)}: bootstrap + "
+          f"{MS_CHUNKS} chunks of {CHUNK} + {MS_CHUNKS} BA passes in "
+          f"{wall:.2f} s ({S * MS_CHUNKS * CHUNK / wall:.2f} tracked frames/s "
+          f"aggregate, bootstrap included), keyframes {num_kf.tolist()}, "
+          f"recovery-branch frames {n_rec}, peak allocated "
+          f"{peak / 2**20:.0f} MiB, launches {launches} (expected {want})",
+          flush=True)
+    check(launches == want, f"multi-stream: launch counts {launches} != "
+          f"{want} (attention and assignment per chunk as for one stream)")
+    check(ok.all() and (num_kf == n_kf).all() and n_rec == 0,
+          f"multi-stream: frames kept {ok.sum(0).tolist()} of "
+          f"{MS_CHUNKS * CHUNK} per stream, recovery-branch frames {n_rec}")
+    check(all(bool(torch.isfinite(x).all()) for x in (*st.map, *st[1:])
+              if torch.is_tensor(x) and x.is_floating_point()),
+          "multi-stream: non-finite state")
+    # each stream against its own single-stream run. Bound: the whole-run
+    # bounds between the JAX package and the port (tests/
+    # test_torch_slice.py), 1e-3 on rotation entries and 5e-2 m: phase 3's
+    # repeated runs are bit-identical, but a batched product sums in
+    # another order than an unbatched one, and a correspondence that lands
+    # on the other side of a threshold moves a pose by centimetres.
+    streams = []
+    for s, o in enumerate(MS_OFFSETS):
+        st1, outs1 = single_run(o, u_boot[s], [u[s] for u in u_chunks],
+                                MS_CHUNKS)
+        R1 = st1.map.kf_R[:n_kf].cpu().numpy()
+        t1 = st1.map.kf_t[:n_kf].cpu().numpy()
+        gap = (float(np.abs(kR[s, :n_kf] - R1).max()),
+               float(np.abs(kt[s, :n_kf] - t1).max()))
+        ate = _stream_ate(scene, kR[s], kt[s], n_kf, o)
+        ate1 = _stream_ate(scene, R1, t1, n_kf, o)
+        d_inl = max(abs(int(a.num_inliers[s]) - int(b.num_inliers))
+                    for a, b in zip(outs, outs1))
+        d_map = max(abs(int(a.num_map_matches[s]) - int(b.num_map_matches))
+                    for a, b in zip(outs, outs1))
+        mm = float(np.mean([int(a.num_matches[s]) for a in outs]))
+        print(f"  stream {s} (offset {o}): {int(ok[:, s].sum())}/"
+              f"{MS_CHUNKS * CHUNK} frames, mean matches {mm:.1f}, ATE "
+              f"{ate:.4f} m (single-stream run {ate1:.4f} m), keyframe poses "
+              f"vs the single-stream run {gap[0]:.3g} (R) {gap[1]:.3g} m (t), "
+              f"count differences inliers {d_inl} map matches {d_map}",
+              flush=True)
+        check(ate <= 1.0, f"stream {s}: ATE {ate} m > 1 m")
+        check(int(st1.map.num_kf) == n_kf, f"stream {s}: the single-stream "
+              f"run kept {int(st1.map.num_kf)} keyframes")
+        check(gap[0] <= 1e-3 and gap[1] <= 5e-2, f"stream {s}: keyframe "
+              f"poses {gap} from its single-stream run")
+        streams.append(dict(offset=o, ate_m=ate, single_ate_m=ate1,
+                            pose_gap_R=gap[0], pose_gap_t_m=gap[1],
+                            mean_matches=mm, inlier_count_diff=d_inl,
+                            map_match_count_diff=d_map))
+
+    # sixteen streams, one chunk (BASELINE configs[4])
+    offs = tuple(range(MS_BIG))
+    ub, uc = _stream_draws(torch, dev, MS_BIG, 1, hyp, 2000)
+    ms_run(offs, 1, MS_BIG_GROUP, ub, uc)             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr16, outs16, recs16 = ms_run(offs, 1, MS_BIG_GROUP, ub, uc)
+    torch.cuda.synchronize()
+    wall16 = time.perf_counter() - t0
+    launches16 = dict(_build.LAUNCHES)
+    peak16 = torch.cuda.max_memory_allocated()
+    want16 = {"attention": per_chunk["attention"],
+              "assignment": per_chunk["assignment"],
+              "nms": 2 * MS_BIG // MS_BIG_GROUP}
+    ok16 = torch.stack([o.frame_ok for o in outs16]).cpu().numpy()
+    st16 = tr16.state
+    print(f"  {MS_BIG} streams, extraction in groups of {MS_BIG_GROUP}: "
+          f"bootstrap + 1 chunk + BA in {wall16:.2f} s "
+          f"({MS_BIG * CHUNK / wall16:.2f} tracked frames/s aggregate, "
+          f"bootstrap included), frames kept {int(ok16.sum())}/"
+          f"{MS_BIG * CHUNK}, torch.cuda.max_memory_allocated "
+          f"{peak16 / 2**20:.0f} MiB, launches {launches16} (expected "
+          f"{want16})", flush=True)
+    check(launches16 == want16, f"16 streams: launch counts {launches16} != "
+          f"{want16}")
+    check(ok16.all(), f"16 streams: frames kept per stream "
+          f"{ok16.sum(0).tolist()}")
+    check(all(bool(torch.isfinite(x).all()) for x in (*st16.map, *st16[1:])
+              if torch.is_tensor(x) and x.is_floating_point()),
+          "16 streams: non-finite state")
+    details["multistream"] = dict(
+        config="flagship_config(), BA after every chunk (window 8 + "
+               "overlap), centroid subpix, phase 3's frames at per-stream "
+               "offsets, per-stream RANSAC generators",
+        offsets=list(MS_OFFSETS), chunks=MS_CHUNKS, wall_s=wall,
+        launches=launches, expected_launches=want,
+        peak_allocated_bytes=peak, streams=streams,
+        big=dict(streams=MS_BIG, extract_group=MS_BIG_GROUP, wall_s=wall16,
+                 launches=launches16, expected_launches=want16,
+                 peak_allocated_bytes=peak16,
+                 frames_kept=int(ok16.sum()),
+                 recovery_frames=int(np.asarray(recs16).sum())))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1470,28 +1752,34 @@ def main() -> int:
         print(f"phase 8: the command line's per-frame route on the same "
               f"directory: superpoint --per-frame (flagship), Harris, "
               f"oracle [{time.perf_counter() - t_start:.0f} s]", flush=True)
-        launches = run_per_frame(torch, details, data)
+        run_per_frame(torch, details, data)
         print(f"phase 9: the tracker options on phase 3's frames: batched "
               f"and merged re-observation, PnP, motion gating "
               f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
         run_options(torch, dev, details, *slice_args, slice_poses)
+        print(f"phase 10: multi-stream tracking, {len(MS_OFFSETS)} streams "
+              f"x {MS_CHUNKS} chunks with BA, then {MS_BIG} streams x 1 chunk "
+              f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
+        launches = run_multistream(torch, dev, details, *slice_args)
         details["wall_s"] = time.perf_counter() - t_start
         print(f"all phases passed [{details['wall_s']:.0f} s]", flush=True)
 
         kernels = []
+        S = len(MS_OFFSETS)
         for name, rows, err, src, replaces, shape in (
                 ("attention", attn_rows, attn_err,
                  "gl_slam_tpu_torch/csrc/attention.cu",
-                 "gl_slam_tpu/ops/attention.py:68", "per-frame "),
+                 "gl_slam_tpu/ops/attention.py:68",
+                 f"streams prologue {S}x"),
                 ("assignment", asg_rows, asg_err,
                  "gl_slam_tpu_torch/csrc/assignment.cu",
-                 "gl_slam_tpu/ops/assignment.py:128", "bootstrap and "
-                 "per-frame "),
+                 "gl_slam_tpu/ops/assignment.py:128",
+                 f"streams prologue {S * CHUNK}x"),
                 ("nms", nms_rows, nms_err,
                  "gl_slam_tpu_torch/csrc/nms.cu",
-                 "gl_slam_tpu/ops/nms.py:86", "detector 1x")):
-            # the shape of this path (phase 8): one pair per matcher pass,
-            # the learned detector's map of one frame at radius 3
+                 "gl_slam_tpu/ops/nms.py:86", f"detector {CHUNK}x")):
+            # the shape of this path (phase 10): the multi-stream prologue
+            # of 4 streams, extraction of one stream's chunk
             head = next(r for r in rows if r["shape"].startswith(shape))
             kernels.append(dict(
                 name=name, route="cuda", source=src, replaces=replaces,

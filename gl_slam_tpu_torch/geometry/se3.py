@@ -53,6 +53,21 @@ def _mv(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (R @ v[..., None])[..., 0]
 
 
+def mv(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """R @ v for rotations (..., 3, 3) and vectors (..., 3) whose leading
+    axes broadcast; without leading axes the plain matrix-vector product."""
+    if R.dim() == 2 and v.dim() == 1:
+        return R @ v
+    return _mv(R, v)
+
+
+def vm(v: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """v^T R for (..., 3) and (..., 3, 3); without leading axes `v @ R`."""
+    if R.dim() == 2 and v.dim() == 1:
+        return v @ R
+    return (v[..., None, :] @ R)[..., 0, :]
+
+
 def compose(R1, t1, R2, t2):
     """(R1,t1) o (R2,t2): apply (R2,t2) first, then (R1,t1)."""
     return R1 @ R2, _mv(R1, t2) + t1
@@ -78,8 +93,8 @@ def apply_to_points(R, t, pts):
 
 
 def chain_relative(R_prev, t_prev, R_rel, t_rel):
-    """T_cur = T_rel o T_prev (world->camera poses)."""
-    return R_rel @ R_prev, R_rel @ t_prev + t_rel
+    """T_cur = T_rel o T_prev (world->camera poses); leading axes allowed."""
+    return R_rel @ R_prev, mv(R_rel, t_prev) + t_rel
 
 
 def log_so3(R: torch.Tensor) -> torch.Tensor:

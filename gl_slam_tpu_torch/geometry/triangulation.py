@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import projection
+from . import projection, se3
 
 
 class TriangulationResult(NamedTuple):
@@ -23,37 +23,43 @@ class TriangulationResult(NamedTuple):
 
 
 def _ray_depth_batched(K, R0, t0, R1, t1, uv0, uv1, newton_iters: int = 2):
+    """Points (..., N, 3) of pixels (..., N, 2) at poses whose leading
+    axes broadcast against the pixels' (a stream axis)."""
     x0 = projection.normalize_points(K, uv0)
-    ray0 = torch.cat([x0, torch.ones_like(x0[:, :1])], dim=1)     # (N,3)
-    R_rel = R1 @ R0.T
-    t_rel = t1 - R_rel @ t0
-    h_c = K @ t_rel                                               # (3,)
-    h_d = K @ (R_rel @ ray0.T)                                    # (3,N)
-    r0 = torch.stack([uv1[:, 0] * h_c[2] - h_c[0],
-                      uv1[:, 1] * h_c[2] - h_c[1]], dim=1)
-    r1 = torch.stack([uv1[:, 0] * h_d[2] - h_d[0],
-                      uv1[:, 1] * h_d[2] - h_d[1]], dim=1)
-    denom = (r1 * r1).sum(1)
-    s = -(r0 * r1).sum(1) / torch.clamp_min(denom, 1e-20)
+    ray0 = torch.cat([x0, torch.ones_like(x0[..., :1])], dim=-1)  # (...,N,3)
+    R_rel = R1 @ R0.transpose(-1, -2)
+    t_rel = t1 - se3.mv(R_rel, t0)
+    h_c = se3.mv(K, t_rel)                                        # (...,3)
+    h_d = K @ (R_rel @ ray0.transpose(-1, -2))                    # (...,3,N)
+    hc0, hc1, hc2 = (h_c[..., i, None] for i in range(3))
+    r0 = torch.stack([uv1[..., 0] * hc2 - hc0,
+                      uv1[..., 1] * hc2 - hc1], dim=-1)
+    r1 = torch.stack([uv1[..., 0] * h_d[..., 2, :] - h_d[..., 0, :],
+                      uv1[..., 1] * h_d[..., 2, :] - h_d[..., 1, :]], dim=-1)
+    denom = (r1 * r1).sum(-1)
+    s = -(r0 * r1).sum(-1) / torch.clamp_min(denom, 1e-20)
     for _ in range(newton_iters):
-        p = h_d * s[None, :] + h_c[:, None]
-        z = torch.where(p[2].abs() < 1e-12, 1e-12, p[2])
-        ex = p[0] / z - uv1[:, 0]
-        ey = p[1] / z - uv1[:, 1]
-        gx = (h_d[0] * z - p[0] * h_d[2]) / (z * z)
-        gy = (h_d[1] * z - p[1] * h_d[2]) / (z * z)
+        p = h_d * s[..., None, :] + h_c[..., :, None]
+        p0, p1, p2 = p[..., 0, :], p[..., 1, :], p[..., 2, :]
+        z = torch.where(p2.abs() < 1e-12, 1e-12, p2)
+        ex = p0 / z - uv1[..., 0]
+        ey = p1 / z - uv1[..., 1]
+        gx = (h_d[..., 0, :] * z - p0 * h_d[..., 2, :]) / (z * z)
+        gy = (h_d[..., 1, :] * z - p1 * h_d[..., 2, :]) / (z * z)
         g2 = gx * gx + gy * gy
         s = s - (ex * gx + ey * gy) / torch.clamp_min(g2, 1e-20)
-    X_cam0 = s[:, None] * ray0
-    return (X_cam0 - t0[None, :]) @ R0
+    X_cam0 = s[..., None] * ray0
+    return (X_cam0 - t0[..., None, :]) @ R0
 
 
 def triangulate(K, R0, t0, R1, t1, uv0, uv1, mask=None,
                 max_depth: float = 100.0, max_reproj_px: float = 0.5,
                 min_parallax_deg: float = 0.0) -> TriangulationResult:
-    """Triangulate (N,) correspondences between two cameras and filter:
-    positive depth in both, camera-0 depth < max_depth, reprojection error
-    <= max_reproj_px in both views, optional minimum ray angle."""
+    """Triangulate (..., N) correspondences between two cameras and
+    filter: positive depth in both, camera-0 depth < max_depth,
+    reprojection error <= max_reproj_px in both views, optional minimum ray
+    angle. Poses may carry leading axes (a stream axis) that broadcast
+    against the correspondences'."""
     pts = _ray_depth_batched(K, R0, t0, R1, t1, uv0, uv1)
     _, z0, front0 = projection.project(K, R0, t0, pts)
     _, z1, front1 = projection.project(K, R1, t1, pts)
@@ -62,13 +68,13 @@ def triangulate(K, R0, t0, R1, t1, uv0, uv1, mask=None,
     err = torch.maximum(e0, e1)
     valid = front0 & front1 & (z0 < max_depth) & (err <= max_reproj_px)
     if min_parallax_deg > 0.0:
-        c0 = -t0 @ R0
-        c1 = -t1 @ R1
-        r0 = pts - c0
-        r1 = pts - c1
-        cosang = (r0 * r1).sum(1) / torch.clamp_min(
-            torch.linalg.vector_norm(r0, dim=1)
-            * torch.linalg.vector_norm(r1, dim=1), 1e-12)
+        c0 = -se3.vm(t0, R0)
+        c1 = -se3.vm(t1, R1)
+        r0 = pts - c0[..., None, :]
+        r1 = pts - c1[..., None, :]
+        cosang = (r0 * r1).sum(-1) / torch.clamp_min(
+            torch.linalg.vector_norm(r0, dim=-1)
+            * torch.linalg.vector_norm(r1, dim=-1), 1e-12)
         valid = valid & (cosang < math.cos(math.radians(min_parallax_deg)))
     if mask is not None:
         valid = valid & mask

@@ -134,6 +134,14 @@ def fused_reductions_cuda(f0, f1, c0, c1, m0, m1, scale: float):
     if f0.data_ptr() % 16 or f1.data_ptr() % 16:
         raise ValueError("assignment_cuda: f0, f1 must be 16-byte aligned")
     B = math.prod(lead)
+    # grid z holds the pairs; offsets are built for fewer than 2^31
+    # elements per buffer (the column partials are the largest)
+    if B > 65535:
+        raise ValueError(f"assignment_cuda: {B} pairs > 65535")
+    if max(B * N * Df, B * M * Df, B * -(-N // ROW_TILE) * M * 2,
+           B * N * 16) >= 2 ** 31:
+        raise ValueError("assignment_cuda: a buffer holds 2^31 elements or "
+                         "more")
     dev = f0.device
     i32, f32 = torch.int32, torch.float32
     nn0 = torch.empty((*lead, N), dtype=i32, device=dev)

@@ -33,6 +33,7 @@ SPLIT_KEY_TILE = 64   # keys per ring stage where the keys are split
 LONG_KEY_TILE = 96    # keys per ring stage where each CTA takes all keys
 MAX_SPLITS = 8        # the portable cluster size
 FILL_CTAS = 64        # CTAs at which a split call runs fastest (PERF.md)
+GRID_Z_MAX = 65535    # the CUDA grid's z limit (one z per (set, head))
 
 
 def split_plan(BH: int, Nq: int, Nk: int) -> tuple[int, int, int]:
@@ -136,6 +137,14 @@ def attention_cuda(q, k, v, mask_k, scale: float):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("attention_cuda: q, k, v must be 16-byte aligned")
     B = math.prod(lead)
+    # grid z holds the (set, head) pairs; the tensor maps and the output
+    # offsets are built for fewer than 2^31 elements per operand
+    if B * H > GRID_Z_MAX:
+        raise ValueError(f"attention_cuda: {B * H} (set, head) pairs > "
+                         f"{GRID_Z_MAX}")
+    if B * H * max(Nq, Nk) * dh >= 2 ** 31:
+        raise ValueError("attention_cuda: an operand holds 2^31 elements "
+                         "or more")
     out = torch.empty((*lead, H, Nq, dh), dtype=torch.float32,
                       device=q.device)
     if B * H == 0 or Nq == 0:

@@ -102,6 +102,8 @@ def nms_cuda(heat: torch.Tensor, radius: int,
     B, H, W = heat.shape
     if B > 65535:
         raise ValueError(f"nms_cuda: batch {B} > 65535")
+    if heat.numel() >= 2 ** 31:
+        raise ValueError("nms_cuda: the map holds 2^31 elements or more")
     out = torch.empty_like(heat)
     if heat.numel() == 0:
         return out

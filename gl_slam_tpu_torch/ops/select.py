@@ -20,10 +20,10 @@ def topk_stable(x: torch.Tensor, k: int, dim: int = -1):
 
 
 def select_lowest_ids(mask: torch.Tensor, M: int):
-    """Up to M set positions of `mask`, LOWEST index first. Returns (ids
-    (M,) int32 with -1 padding, valid (M,) bool); overflow drops the highest
-    indices."""
-    n = mask.shape[0]
+    """Up to M set positions of `mask` (..., n), LOWEST index first.
+    Returns (ids (..., M) int32 with -1 padding, valid (..., M) bool);
+    overflow drops the highest indices."""
+    n = mask.shape[-1]
     ar = torch.arange(n, dtype=torch.int32, device=mask.device)
     top, _ = topk_stable(torch.where(mask, n - ar, -1), M)
     ids = torch.where(top >= 0, n - top, -1).to(torch.int32)
@@ -31,10 +31,10 @@ def select_lowest_ids(mask: torch.Tensor, M: int):
 
 
 def select_newest_ids(mask: torch.Tensor, M: int):
-    """Up to M set positions of `mask`, HIGHEST index first (map tables
-    allocate point ids in creation order). Returns (ids (M,) int32 with -1
-    padding, valid (M,) bool)."""
-    n = mask.shape[0]
+    """Up to M set positions of `mask` (..., n), HIGHEST index first (map
+    tables allocate point ids in creation order). Returns (ids (..., M)
+    int32 with -1 padding, valid (..., M) bool)."""
+    n = mask.shape[-1]
     ar = torch.arange(n, dtype=torch.int32, device=mask.device)
     prio = torch.where(mask, ar, -1)
     top, _ = topk_stable(prio, M)

@@ -20,6 +20,14 @@ keyframe's descriptors against the frame's by mutual nearest neighbours
 itself. The random draws are arguments instead of a PRNG key carried in
 the state: the essential RANSAC's uniforms (`u`, (hypotheses, 8)) and the
 PnP RANSAC's Gumbels (`pnp_gumbel`, (pnp_hypotheses, N)).
+
+Every function also runs S independent streams at once on a leading
+stream axis (`init_track_state(..., num_streams=S)`): states, features,
+draws and gates carry it, a per-stream scalar becomes an (S,) tensor, and
+no operation mixes streams (slam/state.py offsets each stream's table
+reads and writes). This is the JAX package's `vmap` over the stream axis
+(parallel/multistream.py): one matcher call and one fused assignment
+cover all S streams, so a kernel launch carries S frames.
 """
 
 from __future__ import annotations
@@ -34,8 +42,9 @@ from ..config import SLAMConfig
 from ..geometry import essential, pnp, projection, se3, triangulation
 from ..ops import match as match_ops
 from . import pose_ba, reobserve
-from .state import (MapState, _at, _scatter, init_map_state, insert_keyframe,
-                    map_state_from_numpy)
+from .state import (MapState, _at, _gather, _scatter, _where,
+                    init_map_state, insert_keyframe, map_state_from_numpy,
+                    stack_streams)
 
 _I32 = torch.int32
 
@@ -89,13 +98,16 @@ class TrackOutputs(NamedTuple):
 
 
 def _count(mask: torch.Tensor) -> torch.Tensor:
-    return mask.to(_I32).sum(dtype=_I32)
+    """Set entries along the last axis (per stream under a stream axis)."""
+    return mask.to(_I32).sum(-1, dtype=_I32)
 
 
 def init_track_state(cfg: SLAMConfig, device=None,
-                     patch: Optional[int] = None) -> TrackState:
+                     patch: Optional[int] = None,
+                     num_streams: Optional[int] = None) -> TrackState:
     """`patch`: side of the carried previous-frame patches, set to the
-    PairSubpixHead's patch size when pair-conditioned refinement runs."""
+    PairSubpixHead's patch size when pair-conditioned refinement runs.
+    `num_streams` S: S empty states on a leading stream axis."""
     N = cfg.frontend.max_keypoints
     D = cfg.frontend.descriptor_dim
     m = init_map_state(cfg.map.max_keyframes, cfg.map.max_points, N, D,
@@ -105,7 +117,7 @@ def init_track_state(cfg: SLAMConfig, device=None,
                        device=device)
     f32 = torch.float32
     kw = dict(dtype=f32, device=device)
-    return TrackState(
+    st = TrackState(
         map=m, prev_kpts=torch.zeros((N, 2), **kw),
         prev_desc=torch.zeros((N, D), **kw),
         prev_valid=torch.zeros((N,), dtype=torch.bool, device=device),
@@ -114,6 +126,7 @@ def init_track_state(cfg: SLAMConfig, device=None,
         t_rel=torch.zeros(3, **kw),
         prev_patches=None if patch is None
         else torch.zeros((N, patch, patch), **kw))
+    return st if num_streams is None else stack_streams(st, num_streams)
 
 
 def track_state_from_numpy(fields, device=None) -> TrackState:
@@ -150,7 +163,8 @@ def bootstrap_step(cfg: SLAMConfig, K, state: TrackState, f0: FrameFeatures,
     scaled to `gt_scale`, triangulation at the bootstrap threshold,
     keyframes 0 and 1 inserted. `u`: (hypotheses, 8) RANSAC draws.
     `patches1`: frame 1's image patches, carried for the pair sub-pixel
-    head (None keeps the state's)."""
+    head (None keeps the state's). Under a stream axis `gt_scale` and the
+    frame indices are (S,)."""
     if u is None:
         raise ValueError("bootstrap_step needs the RANSAC draws `u`")
     g = cfg.geometry
@@ -165,7 +179,9 @@ def bootstrap_step(cfg: SLAMConfig, K, state: TrackState, f0: FrameFeatures,
         K, uv0, uv1, pair, u, threshold_px=g.essential_threshold_px,
         num_hypotheses=g.essential_hypotheses,
         refine_iters=g.essential_refine_iters)
-    t_scaled = ess.t * gt_scale
+    lead = f0.kpts.shape[:-2]
+    t_scaled = ess.t * torch.as_tensor(gt_scale, dtype=torch.float32,
+                                       device=dev)[..., None]
     R0 = torch.eye(3, dtype=torch.float32, device=dev)
     t0 = torch.zeros(3, dtype=torch.float32, device=dev)
     tri = triangulation.triangulate(
@@ -174,15 +190,16 @@ def bootstrap_step(cfg: SLAMConfig, K, state: TrackState, f0: FrameFeatures,
         max_reproj_px=g.triangulation_reproj_bootstrap_px,
         min_parallax_deg=g.min_parallax_deg)
 
-    N = f0.kpts.shape[0]
-    none = torch.full((N,), -1, dtype=_I32, device=dev)
-    ar = torch.arange(N, dtype=_I32, device=dev)
-    minus1 = torch.full((), -1, dtype=_I32, device=dev)
+    N = f0.kpts.shape[-2]
+    none = torch.full(lead + (N,), -1, dtype=_I32, device=dev)
+    ar = torch.arange(N, dtype=_I32, device=dev).expand(lead + (N,))
+    minus1 = torch.full(lead, -1, dtype=_I32, device=dev)
     mstate = insert_keyframe(
-        state.map, R0, t0, f0.frame_idx, f0.kpts, f0.desc, f0.valid, none,
-        torch.zeros((N, 3), device=dev),
-        torch.zeros((N,), dtype=torch.bool, device=dev), none, none, minus1,
-        covis_threshold=cfg.map.covis_edge_threshold)
+        state.map, R0.expand(lead + (3, 3)), t0.expand(lead + (3,)),
+        f0.frame_idx, f0.kpts, f0.desc, f0.valid, none,
+        torch.zeros(lead + (N, 3), device=dev),
+        torch.zeros(lead + (N,), dtype=torch.bool, device=dev), none, none,
+        minus1, covis_threshold=cfg.map.covis_edge_threshold)
     mstate = insert_keyframe(
         mstate, ess.R, t_scaled, f1.frame_idx, f1.kpts, f1.desc, f1.valid,
         none, tri.points, tri.valid, m.matches0, ar, minus1 + 1,
@@ -191,20 +208,20 @@ def bootstrap_step(cfg: SLAMConfig, K, state: TrackState, f0: FrameFeatures,
     new_state = TrackState(
         map=mstate, prev_kpts=f1.kpts, prev_desc=f1.desc,
         prev_valid=f1.valid, R_cur=ess.R, t_cur=t_scaled,
-        t_rel_norm=torch.linalg.vector_norm(t_scaled), R_rel=ess.R,
+        t_rel_norm=torch.linalg.vector_norm(t_scaled, dim=-1), R_rel=ess.R,
         t_rel=t_scaled,
         prev_patches=state.prev_patches if patches1 is None else patches1)
-    zf = torch.zeros((), device=dev)
-    zi = torch.zeros((), dtype=_I32, device=dev)
+    zf = torch.zeros(lead, device=dev)
+    zi = torch.zeros(lead, dtype=_I32, device=dev)
     out = TrackOutputs(
         R=ess.R, t=t_scaled, num_matches=_count(pair),
         num_inliers=ess.num_inliers, num_map_matches=zi,
         num_new_points=_count(tri.valid), pose_cost=zf,
-        frame_ok=torch.ones((), dtype=torch.bool, device=dev),
+        frame_ok=torch.ones(lead, dtype=torch.bool, device=dev),
         num_rest=zi, num_tri_cheir=zi, num_tri_reproj=zi, num_assoc_prev=zi,
         num_assoc_window=zi, num_assoc_covis=zi, num_assoc_gated=zi,
         dbg_s_lm=zf, dbg_s_med=zf, dbg_err_old=zf, dbg_err_young=zf,
-        dbg_n_old=zi, dbg_soft_ok=torch.ones((), dtype=torch.bool,
+        dbg_n_old=zi, dbg_soft_ok=torch.ones(lead, dtype=torch.bool,
                                              device=dev),
         dbg_step_ratio=zf)
     return new_state, out
@@ -243,8 +260,10 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
     mode = cfg.map.reobs_mode
     one_pass = mode in ("merged", "batched")
     dev = f.kpts.device
-    N = f.kpts.shape[0]
+    N = f.kpts.shape[-2]
     mstate = state.map
+    L = mstate.lead
+    lead = mstate.num_kf.shape
     Pmax, Kmax = mstate.capacity_pts, mstate.capacity_kf
     prev_kf = mstate.num_kf - 1
     prev_c = torch.clamp(prev_kf, 0, Kmax - 1).long()
@@ -270,7 +289,7 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
     if use_pnp:
         R_pred, t_pred = state.R_cur, state.t_cur
         geom_inliers, geom_num_inliers = pair, _count(pair)
-        geom_ok = torch.ones((), dtype=torch.bool, device=dev)
+        geom_ok = torch.ones(lead, dtype=torch.bool, device=dev)
         R_chain = torch.eye(3, dtype=torch.float32, device=dev)
     else:
         ess = ess_result
@@ -281,20 +300,21 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
                     threshold_px=g.essential_threshold_px,
                     num_hypotheses=g.essential_hypotheses,
                     refine_iters=g.essential_refine_iters)
-        R_pred, t_pred = se3.chain_relative(state.R_cur, state.t_cur, ess.R,
-                                            ess.t * state.t_rel_norm)
+        R_pred, t_pred = se3.chain_relative(
+            state.R_cur, state.t_cur, ess.R,
+            ess.t * state.t_rel_norm[..., None])
         geom_inliers, geom_num_inliers = ess.inliers, ess.num_inliers
         geom_ok, R_chain = ess.ok, ess.R
 
     # 4. 3D-2D association. (a) matched prev keypoints with a map point
-    prev_kp2mp = _at(mstate.kf_kp2mp, prev_c)
+    prev_kp2mp = _at(mstate.kf_kp2mp, prev_c, L)
     inl_pair = pair & geom_inliers
     mp_prev = torch.where(inl_pair, prev_kp2mp, -1)
-    mp_bad = mstate.pts_bad[torch.clamp(mp_prev, 0, Pmax - 1).long()]
+    mp_bad = _gather(mstate.pts_bad, torch.clamp(mp_prev, 0, Pmax - 1), L)
     mp_prev = torch.where((mp_prev >= 0) & ~mp_bad, mp_prev, -1)
     cur_rows = torch.where(mp_prev >= 0, m.matches0, N)
-    reobs_mpid = _scatter(torch.full((N,), -1, dtype=_I32, device=dev),
-                          cur_rows, mp_prev)
+    reobs_mpid = _scatter(torch.full(lead + (N,), -1, dtype=_I32,
+                                     device=dev), cur_rows, mp_prev, lead=L)
     n_assoc_a = _count(reobs_mpid >= 0)
     if one_pass:
         # (b)+(c) in one matcher call, seeded by (a) at the predicted pose
@@ -310,7 +330,7 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
         reobs_mpid = torch.where(reobs_mpid >= 0, reobs_mpid,
                                  both.reobs_mpid)
         n_assoc_b = _count(reobs_mpid >= 0) - n_assoc_a
-        n_assoc_c = torch.zeros((), dtype=_I32, device=dev)
+        n_assoc_c = torch.zeros(lead, dtype=_I32, device=dev)
     else:
         # (b) map-window re-observations
         reobs_mpid = torch.where(reobs_mpid >= 0, reobs_mpid,
@@ -329,10 +349,10 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
     # 5. pose solve: three starts (the prediction or the PnP pose, the
     #    previous pose, constant velocity), lowest final robust cost wins
     has3d = reobs_mpid >= 0
-    rid = torch.clamp(reobs_mpid, 0, Pmax - 1).long()
-    p3d = mstate.pts_xyz[rid]
+    rid = torch.clamp(reobs_mpid, 0, Pmax - 1)
+    p3d = _gather(mstate.pts_xyz, rid, L)
     run_pose_ba = cfg.runtime.run_pose_ba
-    age = mstate.num_kf - mstate.pts_first_kf[rid]
+    age = mstate.num_kf[..., None] - _gather(mstate.pts_first_kf, rid, L)
     pt_w = torch.where(age >= cfg.ba.pose_young_age, 1.0,
                        cfg.ba.pose_young_weight) \
         if cfg.ba.pose_young_weight < 1.0 else None
@@ -353,25 +373,25 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
                                         state.R_rel, state.t_rel)
         with record_function("track.pose_lm"):
             pb = pose_ba.pose_only_ba_multi(
-                K, torch.stack([R_init, state.R_cur, R_cv]),
-                torch.stack([t_init, state.t_cur, t_cv]), p3d, f.kpts,
+                K, torch.stack([R_init, state.R_cur, R_cv], -3),
+                torch.stack([t_init, state.t_cur, t_cv], -2), p3d, f.kpts,
                 has3d, iters=cfg.ba.pose_only_iters,
                 cauchy_scale=cfg.ba.pose_only_cauchy_scale,
                 coarse_iters=cfg.ba.pose_only_coarse_iters,
                 coarse_scale_mult=cfg.ba.pose_only_coarse_mult,
                 point_weights=pt_w)
-        best = torch.argmin(pb.final_cost)
-        R_cur, t_cur, pose_cost = (_at(pb.R, best), _at(pb.t, best),
-                                   _at(pb.final_cost, best))
+        best = torch.argmin(pb.final_cost, dim=-1)
+        R_cur, t_cur, pose_cost = (_at(pb.R, best, L), _at(pb.t, best, L),
+                                   _at(pb.final_cost, best, L))
     else:
         R_cur, t_cur = R_init, t_init
-        pose_cost = torch.zeros((), device=dev)
+        pose_cost = torch.zeros(lead, device=dev)
 
     # 5b. association reprojection gate + pose re-polish
     n_assoc_pre_gate = _count(has3d)
-    zf = torch.zeros((), device=dev)
+    zf = torch.zeros(lead, device=dev)
     dbg_err_old, dbg_err_young = zf, zf
-    dbg_n_old = torch.zeros((), dtype=_I32, device=dev)
+    dbg_n_old = torch.zeros(lead, dtype=_I32, device=dev)
     if g.reobs_max_reproj_px > 0:
         uv_p, _, front_p = projection.project(K, R_cur, t_cur, p3d)
         err2 = ((uv_p - f.kpts) ** 2).sum(-1)
@@ -379,9 +399,9 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
         young_m = has3d & (age < cfg.ba.pose_young_age)
         err_d = torch.sqrt(err2)
         dbg_n_old = _count(old_m)
-        dbg_err_old = torch.where(old_m, err_d, 0.0).sum() \
+        dbg_err_old = torch.where(old_m, err_d, 0.0).sum(-1) \
             / torch.clamp(dbg_n_old, min=1)
-        dbg_err_young = torch.where(young_m, err_d, 0.0).sum() \
+        dbg_err_young = torch.where(young_m, err_d, 0.0).sum(-1) \
             / torch.clamp(_count(young_m), min=1)
         assoc_ok = has3d & front_p & (err2 < g.reobs_max_reproj_px ** 2)
         reobs_mpid = torch.where(assoc_ok, reobs_mpid, -1)
@@ -406,13 +426,14 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
     if not use_pnp and cfg.runtime.pose_step_max_ratio > 1.0:
         rr = cfg.runtime.pose_step_max_ratio
         step_lm = torch.linalg.vector_norm(
-            t_cur - (R_cur @ state.R_cur.T) @ state.t_cur)
+            t_cur - se3.mv(R_cur @ state.R_cur.transpose(-1, -2),
+                           state.t_cur), dim=-1)
         ratio = step_lm / torch.clamp(state.t_rel_norm, min=1e-3)
         dbg_ratio = ratio
         soft_ok = soft_ok & (ratio < rr) & (ratio > 1.0 / rr)
     if not use_pnp and cfg.runtime.soft_reject_fallback:
-        R_cur = torch.where(soft_ok, R_cur, R_pred)
-        t_cur = torch.where(soft_ok, t_cur, t_pred)
+        R_cur = _where(soft_ok, R_cur, R_pred)
+        t_cur = _where(soft_ok, t_cur, t_pred)
 
     # 5d. SO(3) re-orthonormalization
     R_cur = se3.project_to_so3(R_cur)
@@ -421,8 +442,9 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
     #    (PnP), else in the pair's own frame and then anchored to the solved
     #    current pose
     cur_idx = torch.clamp(m.matches0, 0, N - 1).long()
-    is_rest = inl_pair & (prev_kp2mp < 0) & (reobs_mpid[cur_idx] < 0)
-    R_prev, t_prev = _at(mstate.kf_R, prev_c), _at(mstate.kf_t, prev_c)
+    is_rest = inl_pair & (prev_kp2mp < 0) \
+        & (torch.gather(reobs_mpid, -1, cur_idx) < 0)
+    R_prev, t_prev = _at(mstate.kf_R, prev_c, L), _at(mstate.kf_t, prev_c, L)
     if use_pnp:
         tri = triangulation.triangulate(
             K, R_prev, t_prev, R_cur, t_cur, uv0, uv1, mask=is_rest,
@@ -432,14 +454,16 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
     else:
         eye3 = torch.eye(3, dtype=torch.float32, device=dev)
         zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
-        s_lm = torch.linalg.vector_norm(t_cur - (R_cur @ R_prev.T) @ t_prev)
-        t_rel_e = ess.t * s_lm
+        s_lm = torch.linalg.vector_norm(
+            t_cur - se3.mv(R_cur @ R_prev.transpose(-1, -2), t_prev), dim=-1)
+        t_rel_e = ess.t * s_lm[..., None]
         tri = triangulation.triangulate(
             K, eye3, zero3, ess.R, t_rel_e, uv0, uv1, mask=is_rest,
             max_depth=g.max_depth, max_reproj_px=g.triangulation_reproj_px,
             min_parallax_deg=g.min_parallax_deg)
-        tri = tri._replace(
-            points=(tri.points @ ess.R.T + t_rel_e - t_cur) @ R_cur)
+        tri = tri._replace(points=(
+            tri.points @ ess.R.transpose(-1, -2) + t_rel_e[..., None, :]
+            - t_cur[..., None, :]) @ R_cur)
     _, z0d, f0d = projection.project(K, R_prev, t_prev, tri.points)
     _, _, f1d = projection.project(K, R_cur, t_cur, tri.points)
     tri_cheir = is_rest & f0d & f1d & (z0d < g.max_depth)
@@ -455,7 +479,8 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
         frame_ok = frame_ok & pr.ok
     if not cfg.runtime.every_frame_keyframe:
         # keyframe motion filter: low-motion frames are skipped
-        t_rel_mag = torch.linalg.vector_norm(t_cur - R_chain @ state.t_cur)
+        t_rel_mag = torch.linalg.vector_norm(
+            t_cur - se3.mv(R_chain, state.t_cur), dim=-1)
         frame_ok = frame_ok & (
             (t_rel_mag > cfg.runtime.gt_mag_filter)
             | (se3.rotation_angle_deg(R_chain) > cfg.runtime.gt_rot_filter))
@@ -465,23 +490,25 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
         mstate = insert_keyframe(
             mstate, R_cur, t_cur, f.frame_idx, f.kpts, f.desc, f.valid,
             reobs_mpid, tri.points, tri.valid, m.matches0,
-            torch.arange(N, dtype=_I32, device=dev), prev_kf,
+            torch.arange(N, dtype=_I32, device=dev).expand(lead + (N,)),
+            prev_kf,
             covis_threshold=cfg.map.covis_edge_threshold,
             enabled=frame_ok)
 
-    t_rel_post = t_cur - R_chain @ state.t_cur
-    R_rel_post = R_cur @ state.R_cur.T
-    t_rel_cv = t_cur - R_rel_post @ state.t_cur
+    t_rel_post = t_cur - se3.mv(R_chain, state.t_cur)
+    R_rel_post = R_cur @ state.R_cur.transpose(-1, -2)
+    t_rel_cv = t_cur - se3.mv(R_rel_post, state.t_cur)
 
     def sel(new, old):
-        return torch.where(frame_ok, new, old)
+        return _where(frame_ok, new, old)
 
     new_state = TrackState(
         map=mstate, prev_kpts=sel(f.kpts, state.prev_kpts),
         prev_desc=sel(f.desc, state.prev_desc),
         prev_valid=sel(f.valid, state.prev_valid),
         R_cur=sel(R_cur, state.R_cur), t_cur=sel(t_cur, state.t_cur),
-        t_rel_norm=sel(torch.clamp(torch.linalg.vector_norm(t_rel_post),
+        t_rel_norm=sel(torch.clamp(torch.linalg.vector_norm(t_rel_post,
+                                                            dim=-1),
                                    1e-3, 10.0), state.t_rel_norm),
         R_rel=sel(R_rel_post, state.R_rel), t_rel=sel(t_rel_cv, state.t_rel),
         prev_patches=None if patches is None or state.prev_patches is None

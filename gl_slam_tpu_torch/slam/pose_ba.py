@@ -98,8 +98,17 @@ def pose_only_ba_multi(K, R0s, t0s, pts_w, uv, mask, iters: int = 30,
     pts_w (N, 3) observed at uv (N, 2) (mask (N,)). `coarse_iters` > 0
     prepends that many iterations at `cauchy_scale * coarse_scale_mult`;
     `final_cost` is at the fine scale. `point_weights` (N,) multiplies the
-    robust weights and the cost."""
+    robust weights and the cost.
+
+    Under a stream axis the points carry it too, (S, N, 3), and the starts
+    are (S, 3, 3) or, with a start axis behind it, (S, starts, 3, 3)."""
     dt = torch.float32
+    if pts_w.dim() > 2 and R0s.dim() > pts_w.dim():
+        # a start axis behind the stream axis: the points broadcast over it
+        pts_w, uv = pts_w.unsqueeze(-3), uv.unsqueeze(-3)
+        mask = mask.unsqueeze(-2)
+        if point_weights is not None:
+            point_weights = point_weights.unsqueeze(-2)
     pts_w, uv = pts_w.to(dt), uv.to(dt)
     maskf = mask.to(dt)
     if point_weights is not None:
@@ -110,7 +119,7 @@ def pose_only_ba_multi(K, R0s, t0s, pts_w, uv, mask, iters: int = 30,
                       cauchy_scale * coarse_scale_mult, lm_lambda_init)
     R, t, cost = _lm(K, R, t, pts_w, uv, maskf, iters, cauchy_scale,
                      lm_lambda_init)
-    n_used = mask.to(torch.int32).sum(dtype=torch.int32)
+    n_used = mask.to(torch.int32).sum(-1, dtype=torch.int32)
     return PoseBAResult(R=R, t=t, final_cost=cost,
                         num_used=n_used.expand(cost.shape))
 

@@ -35,7 +35,9 @@ def cuda_device():
 # the first candidate's keys all masked; the batched re-observation mode's
 # (the window and covisibility sets of 1024 points on a leading axis of 2
 # against the 2048-keypoint frame, whose self-attention is the (2,) 2048 x
-# 2048 case above).
+# 2048 case above); the multi-stream chunk's at 4 streams (the prologue's
+# 4 x 8 pairs x 2 sets, the re-observation shapes with 4 and 16 streams in
+# front).
 ATTN_CASES = [((3,), 100, 70, 128, False), ((), 64, 200, 64, False),
               ((2, 2), 17, 9, 32, False),
               ((), 1024, 1024, 128, False), ((), 2048, 2048, 128, False),
@@ -44,7 +46,12 @@ ATTN_CASES = [((3,), 100, 70, 128, False), ((), 64, 200, 64, False),
               ((2,), 256, 256, 128, False), ((2,), 2048, 2048, 128, False),
               ((2,), 256, 2048, 128, False), ((2,), 2048, 256, 128, False),
               ((2,), 1024, 1024, 128, False), ((2,), 1024, 2048, 128, False),
-              ((2,), 2048, 1024, 128, False)]
+              ((2,), 2048, 1024, 128, False),
+              ((4, 8, 2), 2048, 2048, 128, False),
+              ((4,), 1024, 1024, 128, False), ((4,), 2048, 2048, 128, False),
+              ((4,), 1024, 2048, 128, False), ((4,), 2048, 1024, 128, False),
+              ((16,), 1024, 2048, 128, False),
+              ((16,), 2048, 1024, 128, False)]
 
 
 @pytest.mark.parametrize("lead,Nq,Nk,dh,masked", ATTN_CASES)
@@ -100,7 +107,11 @@ def _asg_inputs(rng, B, N, M, Df):
 ASG_CASES = [(8, 2048, 2048, 256), (1, 2048, 2048, 256),
              (1, 1024, 2048, 256), (2, 1024, 2048, 256),
              (2, 2048, 2048, 256), (2, 130, 90, 256), (1, 64, 300, 128),
-             (3, 1000, 777, 64), (1, 200, 1000, 128), (1, 40, 65, 256)]
+             (3, 1000, 777, 64), (1, 200, 1000, 128), (1, 40, 65, 256),
+             # the multi-stream chunk's: 4 streams x 8 prologue pairs, 4
+             # and 16 re-observation sets
+             (32, 2048, 2048, 256), (4, 1024, 2048, 256),
+             (16, 1024, 2048, 256)]
 
 
 @pytest.mark.parametrize("B,N,M,Df", ASG_CASES)
@@ -217,6 +228,7 @@ def _nms_maps(rng, B, H, W, r, seg_rows=0):
 # or of 32; maps shorter than one segment; segments of 1, 5 and 16 rows;
 # r 0, 1, 3, 4, 16; B 1.
 NMS_CASES = [(8, 376, 1248, 4, 0), (2, 376, 1248, 4, 0),
+             (16, 376, 1248, 4, 0),        # extraction in groups of 2 streams
              (1, 376, 1241, 4, 0), (3, 70, 131, 3, 0), (1, 33, 64, 1, 0),
              (2, 40, 40, 0, 0), (1, 97, 200, 16, 0), (1, 9, 131, 4, 0),
              (2, 12, 1248, 3, 0), (1, 60, 260, 4, 1), (2, 80, 1241, 4, 5),
@@ -754,3 +766,107 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
         t_nms.nms(heat.transpose(1, 2), 2)
     with pytest.raises(ValueError, match="radius"):
         t_nms.nms(heat, 17)
+
+
+def test_kernels_refuse_a_grid_past_the_card_limits(cuda_device):
+    """More (set, head) pairs or pairs than grid z takes raise before any
+    launch (the multi-stream chunk grows the batch with the streams)."""
+    q = torch.zeros(65536, 1, 1, 32, dtype=torch.bfloat16, device=cuda_device)
+    m = torch.ones(65536, 1, dtype=torch.bool, device=cuda_device)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="65535"):
+        t_attn.attention_cuda(q, q, q, m, 0.1)
+    f = torch.zeros(65536, 1, 64, dtype=torch.bfloat16, device=cuda_device)
+    c = torch.zeros(65536, 1, device=cuda_device)
+    with pytest.raises(ValueError, match="65535"):
+        t_asg.fused_reductions_cuda(f, f, c, c, m, m, 0.1)
+    assert dict(_build.LAUNCHES) == before
+
+
+def test_multistream_chunk_on_the_card_like_single_streams(cuda_device):
+    """Three streams of the tiny pipeline (240x320, N=128) through one
+    multi-stream chunk on the card: attention and assignment launch as
+    often as for one stream's chunk, NMS once per group of streams, no
+    host wait (PyTorch's sync debug mode), and each stream keeps the
+    frames of its own single-stream chunk on the card (same draws), both
+    held to tests/test_torch_slice.py's tracking bound (ATE < 1 m against
+    the ground truth). Poses are not compared frame by frame here: the
+    bfloat16 matcher's batched products sum in another order than its
+    unbatched ones, and on these 128-keypoint scenes a changed match moves
+    a pose by more than the 5e-2 m whole-run bound (chip_smoke.py phase 10
+    holds each stream to its single-stream run at flagship width)."""
+    import dataclasses
+    import os
+
+    from gl_slam_tpu_torch import config as t_cfg
+    from gl_slam_tpu_torch.io import synthetic
+    from gl_slam_tpu_torch.slam import fused
+    from gl_slam_tpu_torch.slam.chunk_driver import ChunkedPipeline
+    from gl_slam_tpu_torch.train import e2e
+
+    ckpt = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
+    H, W, N, D, T, S = 240, 320, 128, t_cfg.TINY_DESC_DIM, 8, 3
+    cfg = t_cfg.micro_config(H, W, N, D)
+    cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime,
+                                                  loop_closing=False))
+    scenes = [synthetic.make_scene(num_landmarks=900, num_frames=2 + T,
+                                   height=H, width=W, desc_dim=D,
+                                   seed=11 + s) for s in range(S)]
+    stacks = [e2e.render_stack(sc, 2 + T, N) for sc in scenes]
+    sp, lg = e2e.load_tiny_frontend(ckpt, device=cuda_device)
+    states = []
+    for sc, st in zip(scenes, stacks):
+        pipe = ChunkedPipeline(cfg, sc.K, sp, lg, chunk=T,
+                               device=cuda_device)
+        c = [-sc.poses_R[i].T @ sc.poses_t[i] for i in (0, 1)]
+        pipe.bootstrap_from_images(st[0], st[1],
+                                   float(np.linalg.norm(c[1] - c[0])))
+        states.append(pipe.state)
+    state = type(states[0])(*(
+        None if x is None else
+        type(x)(*(torch.stack([getattr(s_.map, f) for s_ in states])
+                  for f in x._fields)) if isinstance(x, tuple)
+        else torch.stack([getattr(s_, n) for s_ in states])
+        for n, x in zip(states[0]._fields, states[0])))
+    images = torch.from_numpy(np.stack([st[2:] for st in stacks])).to(
+        cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    u = torch.rand((S, T, cfg.geometry.essential_hypotheses, 8),
+                   generator=g, device=cuda_device)
+    one = fused.build_chunk_fn(cfg, sp, lg, pipe.K, T)
+    singles = []
+    before = dict(_build.LAUNCHES)
+    for s in range(S):
+        singles.append(one(states[s], images[s], 2, u[s]))
+        if s == 0:
+            single = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    fn = fused.build_multistream_chunk_fn(cfg, sp, lg, scenes[0].K, T, S,
+                                          extract_group=1)
+    torch.cuda.synchronize()
+    before = dict(_build.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st_b, outs, _ = fn(state, images, 2, u)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    assert got["attention"] == single["attention"] > 0
+    assert got["assignment"] == single["assignment"] > 0
+    assert got["nms"] == S * single["nms"]
+    assert bool(outs[-1].frame_ok.all())
+
+    def ate(R, t, sc):
+        c_est = np.einsum('kij,kj->ki', R.transpose(0, 2, 1), -t)
+        c_gt = np.stack([-sc.poses_R[i].T @ sc.poses_t[i]
+                         for i in range(len(t))])
+        return float(np.sqrt(((c_est - c_gt) ** 2).sum(1).mean()))
+
+    n = 2 + T
+    for s, (st1, outs1, _) in enumerate(singles):
+        for a, b in zip(outs1, outs):
+            assert bool(a.frame_ok == b.frame_ok[s])
+        assert int(st1.map.num_kf) == int(st_b.map.num_kf[s]) == n
+        for m in (st1.map, type(st1.map)(*(x[s] for x in st_b.map))):
+            R, t = m.kf_R[:n].cpu().numpy(), m.kf_t[:n].cpu().numpy()
+            assert np.isfinite(R).all() and np.isfinite(t).all()
+            assert ate(R, t, scenes[s]) < 1.0

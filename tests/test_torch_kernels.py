@@ -153,9 +153,17 @@ def test_attention_tolerance_covers_kernel_rounding_and_no_more():
 
 # The kernel's path shapes (ops/attention callers at flagship width: 2
 # heads; the prologue's 8 pairs x 2 sets) and ragged ones.
+# The multi-stream chunk's shapes at S streams: S x 8 pairs x 2 sets x 2
+# heads in the prologue, S x 2 heads in re-observation (S = 4 and 16).
 PLAN_SHAPES = [("prologue", 32, 2048, 2048), ("reobs", 2, 1024, 1024),
                ("reobs", 2, 2048, 2048), ("reobs", 2, 1024, 2048),
-               ("reobs", 2, 2048, 1024), ("ragged", 2, 40, 9),
+               ("reobs", 2, 2048, 1024),
+               ("prologue", 128, 2048, 2048), ("prologue", 512, 2048, 2048),
+               ("reobs", 8, 1024, 1024), ("reobs", 8, 2048, 2048),
+               ("reobs", 8, 1024, 2048), ("reobs", 8, 2048, 1024),
+               ("reobs", 32, 1024, 1024), ("reobs", 32, 2048, 2048),
+               ("reobs", 32, 1024, 2048), ("reobs", 32, 2048, 1024),
+               ("ragged", 2, 40, 9),
                ("ragged", 6, 17, 70), ("ragged", 2, 100, 200),
                ("ragged", 1, 1, 200)]
 
@@ -253,8 +261,13 @@ def test_fused_assignment_matches_jax_xla():
 
 # The assignment kernel's path shapes (prologue, bootstrap, re-observation
 # at flagship width) and ragged ones.
+# The multi-stream chunk's shapes at S = 4 and 16 streams: S x 8 prologue
+# pairs, S re-observation sets ("streams": the card is full either way).
 ASG_PLAN_SHAPES = [("prologue", 8, 2048, 2048), ("bootstrap", 1, 2048, 2048),
-                   ("reobs", 1, 1024, 2048), ("ragged", 1, 40, 65),
+                   ("reobs", 1, 1024, 2048),
+                   ("prologue", 32, 2048, 2048), ("prologue", 128, 2048, 2048),
+                   ("streams", 4, 1024, 2048), ("streams", 16, 1024, 2048),
+                   ("ragged", 1, 40, 65),
                    ("ragged", 3, 1000, 777), ("ragged", 1, 1, 64),
                    ("ragged", 2, 130, 90), ("ragged", 1, 200, 1000)]
 
@@ -276,6 +289,8 @@ def test_assign_plan_fills_the_card(kind, B, N, M):
         assert splits == 1 and ctas >= t_asg.FILL_CTAS
     if kind in ("bootstrap", "reobs"):
         assert splits > 1 and ctas >= t_asg.FILL_CTAS >= 64
+    if kind == "streams":
+        assert ctas * splits >= t_asg.FILL_CTAS
     # no more splits than that needs
     assert splits == 1 or ctas // 2 < t_asg.FILL_CTAS
 
