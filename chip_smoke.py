@@ -85,8 +85,25 @@ mode's (the window and covisibility sets, 1024 points each, on a leading
 set axis of 2 against the 2048-keypoint frame), and at the multi-stream
 chunk's with 4 and 16 streams (the prologue's S x 8 pairs, S
 re-observation sets; NMS of 16 maps, extraction in groups of 2 streams).
-The line before the last is the `kernels` JSON; the last line is the
-device JSON. Details go to chiprun_out/chip_smoke.json.
+ 11. front-end training (gl_slam_tpu_torch/train/frontend_train.py) at
+     the flagship preset's width (376x1240, N=2048, D=256, the 9-layer
+     2-head matcher) on one rendered 20000-landmark scene of 8 frames:
+     3 steps of each of train_superpoint, train_subpix, train_pair_subpix
+     and train_lightglue (batch 2, descriptor age 6, jitter 1 px), each
+     held to the launch counts it implies (the matcher's attention kernel
+     once per call forward, never backward; NMS once per 8 staged
+     frames); the matcher's gradient through the kernel against the plain
+     version, parameter by parameter, within a tolerance drawn from
+     attention_tolerance, every q/k/v weight's gradient non-zero; 30
+     steps on fixed batches lowering the SuperPoint loss below 0.7 x its
+     first and the matcher's below its first; and save_params read back
+     by the port's loader into bit-equal forwards.
+Phase 2 also holds attention and NMS at the training shapes (2 pairs x 2
+sets x 2 heads, 2048 x 2048; 8 maps of 376 x 1240 at radius 3).
+The line before the last is the `kernels` JSON (attention and NMS at the
+training shapes with phase 11's launches, the assignment, which training
+does not run, at phase 10's); the last line is the device JSON. Details go
+to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -139,6 +156,15 @@ MS_CHUNKS = 2
 MS_BIG = 16
 MS_BIG_GROUP = 2
 MS_STREAMS = (len(MS_OFFSETS), MS_BIG)
+# Front-end training at flagship width (phase 11): the flagship preset of
+# scripts/train_frontend_torch.py (376 x 1240, N 2048, D 256), one scene of
+# 20000 landmarks, TRAIN_FRAMES rendered frames, TRAIN_STEPS steps of each
+# trainer; the matcher takes batches of TRAIN_PAIRS pairs, each layer one
+# self- and one cross-attention call over the 2 stacked sets; feature
+# staging detects with NMS radius TRAIN_NMS_RADIUS in calls of 8 frames.
+TRAIN_H, TRAIN_W, TRAIN_FRAMES, TRAIN_STEPS, TRAIN_PAIRS = 376, 1240, 8, 3, 2
+TRAIN_NMS_RADIUS, LG_LAYERS = 3, 9
+DESCENT_STEPS = 30
 
 
 def expected_launches(n_chunks, reobs_mode="separate"):
@@ -295,6 +321,14 @@ def attention_cases(torch, gen, dev):
     counts = torch.randint(N // 2, N + 1, (S,), generator=gen, device=dev)
     mask = torch.arange(N, device=dev) < counts[:, None]
     cases.append((f"per-frame {S}x{HEADS}x{N}x{N}", q, k, v, mask))
+    # Front-end training (phase 11): 2 pairs x 2 stacked sets x 2 heads,
+    # ragged masks (the GT keypoints of a rendered frame fill a prefix).
+    q, k, v = needle_qkv(torch, rnd, (TRAIN_PAIRS, S), N, N)
+    counts = torch.randint(N // 2, N + 1, (TRAIN_PAIRS, S), generator=gen,
+                           device=dev)
+    mask = torch.arange(N, device=dev) < counts[..., None]
+    cases.append((f"training {TRAIN_PAIRS}x{S}x{HEADS}x{N}x{N}", q, k, v,
+                  mask))
     # The multi-stream chunk (phase 10): the prologue's streams x 8 pairs x
     # 2 sets, ragged, and the re-observation calls with the streams in
     # front, each stream its own mask.
@@ -548,6 +582,19 @@ def nms_cases(torch, gen, dev, cfg, sp, stack):
             else:
                 real, _ = fused.detector_heatmap(cfg, sp, img)
                 cases.append((f"detector {tag}", real.contiguous(), r))
+    # Front-end training's feature staging (phase 11): 8 frames of 376 x
+    # 1240 (the flagship preset's width, a multiple of 8) through the
+    # network itself, r 3; and a random map of that shape.
+    B, r = CHUNK, TRAIN_NMS_RADIUS
+    heat = torch.rand(B, H, TRAIN_W, generator=gen, device=dev)
+    heat = torch.round(heat * 64) / 64
+    heat[:, :5, :7] = 1.99
+    cases.append((f"random training {B}x{H}x{TRAIN_W} r{r}", heat, r))
+    img = torch.from_numpy(stack[:B, :, :TRAIN_W].copy()).to(dev)
+    with torch.no_grad():
+        real, _ = sp(img[..., None])
+    cases.append((f"train detector {B}x{H}x{TRAIN_W} r{r}",
+                  real.contiguous(), r))
     return cases
 
 
@@ -1684,6 +1731,312 @@ def run_multistream(torch, dev, details, cfg, sp, lg, scene, stack):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: front-end training at flagship width
+
+def _grads(torch, module):
+    return {n: p.grad.detach().clone() for n, p in module.named_parameters()
+            if p.grad is not None}
+
+
+def _lg_grads(torch, lg, batch, H, W, attention_fn=None):
+    """lightglue_loss's gradient of every matcher parameter, with the
+    matcher's attention through `attention_fn` (default: the dispatch,
+    i.e. the kernel under autograd)."""
+    from gl_slam_tpu_torch.ops import attention as A
+    from gl_slam_tpu_torch.train import frontend_train as ft
+    real = A.attention
+    if attention_fn is not None:
+        A.attention = attention_fn
+    try:
+        lg.zero_grad(set_to_none=True)
+        loss = ft.lightglue_loss(lg, batch, H, W)
+        loss.backward()
+    finally:
+        A.attention = real
+    return float(loss.detach()), _grads(torch, lg)
+
+
+def check_matcher_gradient(torch, dev, lg, batch, H, W, out):
+    """One lightglue_loss backward on a flagship training batch through the
+    kernel (KernelAttention) and through attention_plain, parameter by
+    parameter. The tolerance follows attention_tolerance: the kernel's
+    forward may differ from the plain one by up to that elementwise bound
+    at every attention call, so the plain network is run twice more with
+    its attention outputs moved by the full bound (once with random
+    signs, once all positive); per parameter the kernel's gradient must
+    lie within twice the larger of those two moves of the plain one.
+    Every q/k/v weight's gradient must be non-zero."""
+    from gl_slam_tpu_torch.ops import _build
+    from gl_slam_tpu_torch.ops import attention as A
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def moved(random_signs):
+        def fn(q, k, v, mask_k, scale):
+            with torch.no_grad():
+                tol = A.attention_tolerance(q, k, v, mask_k, scale)
+                if random_signs:
+                    tol = tol * torch.sign(torch.randn(
+                        tol.shape, generator=gen, device=dev))
+            return A.attention_plain(q, k, v, mask_k, scale) + tol
+        return fn
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    loss_k, g_kernel = _lg_grads(torch, lg, batch, H, W)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    loss_p, g_plain = _lg_grads(torch, lg, batch, H, W, A.attention_plain)
+    _, g_rand = _lg_grads(torch, lg, batch, H, W, moved(True))
+    _, g_pos = _lg_grads(torch, lg, batch, H, W, moved(False))
+    check(launches["attention"] == 2 * LG_LAYERS,
+          f"gradient check: {launches['attention']} attention launches for "
+          f"one forward and backward, not {2 * LG_LAYERS}")
+    check(set(g_kernel) == set(g_plain) == {n for n, _ in
+                                            lg.named_parameters()},
+          "gradient check: a parameter has no gradient")
+    worst, worst_name, rows = -1.0, None, {}
+    for n, g in g_kernel.items():
+        err = float((g - g_plain[n]).norm())
+        tol = 2 * max(float((g_rand[n] - g_plain[n]).norm()),
+                      float((g_pos[n] - g_plain[n]).norm())) \
+            + 1e-6 * float(g_plain[n].norm())
+        rows[n] = dict(err=err, tol=tol, norm=float(g_plain[n].norm()))
+        if err / tol > worst:
+            worst, worst_name = err / tol, n
+    qkv = [n for n in g_kernel if n.endswith("weight")
+           and n.rsplit(".", 2)[-2] in ("q", "k", "v")]
+    check(len(qkv) == LG_LAYERS * 2 * 3, f"q/k/v weights: {len(qkv)}")
+    zero = [n for n in qkv if not bool(g_kernel[n].abs().max() > 0)]
+    check(not zero, f"gradient check: zero gradient for {zero}")
+    r = rows[worst_name]
+    print(f"  gradient check (batch of {TRAIN_PAIRS} pairs, N {N_KPTS}): "
+          f"loss kernel {loss_k:.6f} plain {loss_p:.6f}; per parameter "
+          f"|g_kernel - g_plain| <= 2 x the larger move of the plain "
+          f"gradient under attention outputs moved by the full "
+          f"attention_tolerance (random / positive signs); worst "
+          f"{worst:.3g} of it at {worst_name} (err {r['err']:.3g}, tol "
+          f"{r['tol']:.3g}, |g| {r['norm']:.3g}); {len(qkv)} q/k/v weights "
+          f"non-zero; {launches['attention']} attention launches "
+          f"(forward only); peak allocated {peak / 2**20:.0f} MiB",
+          flush=True)
+    check(worst <= 1.0, f"gradient check: {worst_name} differs by {worst:.3g}"
+          f" x its tolerance")
+    out["gradient_check"] = dict(
+        loss_kernel=loss_k, loss_plain=loss_p, worst_ratio=worst,
+        worst_param=worst_name, per_param=rows, launches=launches,
+        peak_allocated_bytes=peak, qkv_weights=len(qkv))
+
+
+def time_attention_backward(torch, dev, out):
+    """The recompute backward at the matcher's training shape (2 pairs x 2
+    stacked sets x 2 heads x 2048 x 2048, dh 128): plain PyTorch library
+    calls (the plain version's VJP), timed beside the forward kernel."""
+    from gl_slam_tpu_torch.ops import attention as A
+    gen = torch.Generator(device=dev).manual_seed(12)
+    shape = (TRAIN_PAIRS, 2, HEADS, N_KPTS, HEAD_DIM)
+    leaves = [torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_() for _ in range(3)]
+    mask = torch.rand(TRAIN_PAIRS, 2, N_KPTS, generator=gen,
+                      device=dev) < 0.8
+    cot = torch.randn(shape, generator=gen, device=dev)
+    scale = HEAD_DIM ** -0.5
+    res = A.attention(*leaves, mask, scale)
+    bwd = time_ms(lambda: torch.autograd.grad(res, leaves, cot,
+                                              retain_graph=True), reps=10)
+    fwd = time_ms(lambda: A.attention(*leaves, mask, scale), reps=10)
+    # the backward's least work: recompute q k^T, then dP = g v^T, dq, dk
+    # and dv, five products of 2 Nq Nk dh operations per (set, head)
+    flops = 5 * 2.0 * math.prod(shape[:3]) * N_KPTS * N_KPTS * HEAD_DIM
+    nbytes = 2 * 3 * leaves[0].numel() * 2 + 4 * cot.numel() \
+        + mask.numel()
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"  attention under autograd at {'x'.join(map(str, shape))}: "
+          f"forward (kernel) {fwd:.4f} ms, backward (the plain version's "
+          f"VJP: library calls, no kernel of ours) {bwd:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    out["attention_backward"] = dict(shape=list(shape), forward_ms=fwd,
+                                     backward_ms=bwd, bound_ms=bound_ms,
+                                     bound_by=bound_by)
+
+
+def run_training(torch, dev, details, sp_flagship):
+    """This slice's path: the four trainers of gl_slam_tpu_torch/train/
+    frontend_train.py at the flagship preset's width on the card (3 steps
+    each, chained as scripts/train_frontend_torch.py chains them), the
+    matcher's gradient through the kernel against the plain version,
+    30-step descent on fixed batches, and the save_params round trip. The
+    gradient check and the matcher's descent take their descriptors from
+    the committed flagship SuperPoint `sp_flagship`, as train_lightglue
+    takes them from a trained one: on the descriptors of a SuperPoint 3
+    steps from its initialisation the matcher has little to learn in 30
+    steps."""
+    import shutil
+
+    import numpy as np
+
+    from gl_slam_tpu_torch import checkpoint as ckpt
+    from gl_slam_tpu_torch.config import (FLAGSHIP_DESC_DIM, FLAGSHIP_LG,
+                                          FLAGSHIP_SP_CHANNELS)
+    from gl_slam_tpu_torch.io import synthetic
+    from gl_slam_tpu_torch.models import init_like_flax
+    from gl_slam_tpu_torch.models.lightglue import LightGlueNet
+    from gl_slam_tpu_torch.models.subpix import PairSubpixHead, SubpixHead
+    from gl_slam_tpu_torch.models.superpoint import SuperPointNet
+    from gl_slam_tpu_torch.ops import _build
+    from gl_slam_tpu_torch.train import frontend_train as ft
+
+    H, W, N, D = TRAIN_H, TRAIN_W, N_KPTS, FLAGSHIP_DESC_DIM
+    check(FLAGSHIP_LG == dict(dim=256, heads=HEADS, layers=LG_LAYERS),
+          f"flagship matcher {FLAGSHIP_LG}")
+    t0 = time.perf_counter()
+    scene = synthetic.make_scene(num_landmarks=20000,
+                                 num_frames=TRAIN_FRAMES, height=H, width=W,
+                                 desc_dim=D, seed=7)
+    sp = SuperPointNet(descriptor_dim=D, channels=FLAGSHIP_SP_CHANNELS)
+    ks = SubpixHead(D, patch=7, offset_range=1.5)
+    kp = PairSubpixHead(D, patch=7, offset_range=1.5)
+    lg = LightGlueNet(input_dim=D, **FLAGSHIP_LG)
+    out = dict(config=f"flagship preset {H}x{W}, N {N}, D {D}, SP "
+                      f"{FLAGSHIP_SP_CHANNELS}, LightGlue {FLAGSHIP_LG}, "
+                      f"make_scene(num_landmarks=20000, num_frames="
+                      f"{TRAIN_FRAMES}, seed=7)", trainers={})
+    steps_lg = TRAIN_STEPS
+    want = {
+        "superpoint": {"attention": 0, "assignment": 0, "nms": 0},
+        # one detection call per 8 staged frames
+        "subpix": {"attention": 0, "assignment": 0,
+                   "nms": -(-TRAIN_FRAMES // 8)},
+        "pair_subpix": {"attention": 0, "assignment": 0,
+                        "nms": -(-TRAIN_FRAMES // 8)},
+        # forward launches only: 9 layers x (self + cross) per step
+        "lightglue": {"attention": steps_lg * LG_LAYERS * 2,
+                      "assignment": 0, "nms": 0},
+    }
+    runs = (("superpoint", ft.train_superpoint, (sp,), dict(batch_size=4)),
+            ("subpix", ft.train_subpix, (ks, sp), {}),
+            ("pair_subpix", ft.train_pair_subpix, (kp, sp), {}),
+            ("lightglue", ft.train_lightglue, (lg, sp),
+             dict(batch_size=TRAIN_PAIRS, desc_age_max=6, jitter_px=1.0)))
+    launches_all = {"attention": 0, "assignment": 0, "nms": 0}
+    for name, fn, mods, kw in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        stats = {}
+        t1 = time.perf_counter()
+        fn(*mods, scene, TRAIN_FRAMES, N, steps=TRAIN_STEPS, device=dev,
+           stats=stats, **kw)
+        stats["wall_s"] = time.perf_counter() - t1
+        launches = dict(_build.LAUNCHES)
+        stats["launches"] = launches
+        stats["expected_launches"] = want[name]
+        stats["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        for k_, v_ in launches.items():
+            launches_all[k_] += v_
+        out["trainers"][name] = stats
+        print(f"  {name}: {TRAIN_STEPS} steps, {stats['step_ms']:.2f} ms a "
+              f"step after the first (first step {stats['first_step_s']:.3f}"
+              f" s, staging {stats['stage_s']:.2f} s); loss "
+              f"{stats['first_loss']:.4f} -> {stats['last_loss']:.4f}; "
+              f"launches {launches} (expected {want[name]}); peak "
+              f"allocated {stats['peak_allocated_bytes'] / 2**20:.0f} MiB",
+              flush=True)
+        check(launches == want[name], f"{name}: launches {launches} != "
+              f"{want[name]}")
+        check(np.isfinite([stats["first_loss"], stats["last_loss"]]).all(),
+              f"{name}: non-finite loss")
+    out["launches"] = launches_all
+    sp.eval()
+
+    # the matcher's gradient through the kernel against the plain version
+    data = ft.stage_matcher_data(sp_flagship, [scene], TRAIN_FRAMES, N,
+                                 dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    idx = lambda *a: torch.tensor(a, device=dev)
+    lg_batch = ft.lightglue_batch(data, idx(0, 3), idx(1, 5), idx(0, 1),
+                                  1.0, True, gen)
+    check_matcher_gradient(torch, dev, lg, lg_batch, H, W, out)
+    time_attention_backward(torch, dev, out)
+
+    # descent on fixed batches: the SuperPoint bound of tests/
+    # test_learned_e2e.py::test_training_steps_reduce_losses (Adam 2e-3),
+    # and the matcher with the trainer's optimiser
+    ds = ft.stage_packs([scene], TRAIN_FRAMES, N, dev)
+    sp_fresh = init_like_flax(SuperPointNet(
+        descriptor_dim=D, channels=FLAGSHIP_SP_CHANNELS),
+        torch.Generator().manual_seed(0)).to(dev)
+    sp_batch = ft.superpoint_batch(ds, idx(0, 4), idx(2, 5), gen)
+    opt = torch.optim.Adam(sp_fresh.parameters(), lr=2e-3)
+    sp_losses = []
+    for _ in range(DESCENT_STEPS):
+        loss, _ = ft.superpoint_loss(sp_fresh, sp_batch)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        sp_losses.append(loss.detach())
+    lg_fresh = init_like_flax(LightGlueNet(input_dim=D, **FLAGSHIP_LG),
+                              torch.Generator().manual_seed(1)).to(dev)
+    lopt = ft.ClipAdam(lg_fresh.parameters(), 8e-4)
+    lg_losses = []
+    for _ in range(DESCENT_STEPS):
+        loss = ft.lightglue_loss(lg_fresh, lg_batch, H, W)
+        lopt.step(loss)
+        lg_losses.append(loss.detach())
+    sp_losses = [float(x) for x in sp_losses]
+    lg_losses = [float(x) for x in lg_losses]
+    print(f"  descent on a fixed batch, {DESCENT_STEPS} steps: SuperPoint "
+          f"{sp_losses[0]:.4f} -> {sp_losses[-1]:.4f} (bound < 0.7 x the "
+          f"first), LightGlue {lg_losses[0]:.4f} -> {lg_losses[-1]:.4f} "
+          f"(bound < the first)", flush=True)
+    check(np.isfinite(sp_losses + lg_losses).all(), "descent: non-finite "
+          "loss")
+    check(sp_losses[-1] < 0.7 * sp_losses[0], f"SuperPoint descent "
+          f"{sp_losses[0]} -> {sp_losses[-1]}")
+    check(lg_losses[-1] < lg_losses[0], f"LightGlue descent "
+          f"{lg_losses[0]} -> {lg_losses[-1]}")
+    out["descent"] = dict(superpoint=sp_losses, lightglue=lg_losses)
+
+    # save_params, then the port's loader: a bit-equal forward
+    tmp = os.path.join(ROOT, "chiprun_out", "train_roundtrip")
+    os.makedirs(tmp, exist_ok=True)
+    try:
+        img = ds.images[:2, ..., None]
+        kd = data.grids[0, :4, :4].reshape(16, D)
+        pt = torch.rand(16, 7, 7, generator=gen, device=dev)
+        kk = torch.rand(16, 2, generator=gen, device=dev) * 2 - 1
+        km = torch.ones(16, dtype=torch.bool, device=dev)
+        sc = torch.rand(16, generator=gen, device=dev)
+        for tag, module, fresh, conv, args in (
+                ("sp", sp, SuperPointNet(descriptor_dim=D,
+                                         channels=FLAGSHIP_SP_CHANNELS),
+                 ckpt.superpoint_state_dict, (img,)),
+                ("ks", ks, SubpixHead(D, patch=7, offset_range=1.5),
+                 ckpt.subpix_state_dict, (pt, kd)),
+                ("kspair", kp, PairSubpixHead(D, patch=7, offset_range=1.5),
+                 ckpt.subpix_state_dict, (pt, pt, kd, kd, sc)),
+                ("lg", lg, LightGlueNet(input_dim=D, **FLAGSHIP_LG),
+                 ckpt.lightglue_state_dict, (kd, kd, kk, kk, km, km))):
+            path = ckpt.params_path(tmp, tag)
+            ckpt.save_params(path, module)
+            ckpt.load_module(fresh, path, conv)
+            fresh.to(dev).eval()
+            module.eval()
+            with torch.no_grad():
+                a, b = module(*args), fresh(*args)
+            a = a if isinstance(a, tuple) else (a,)
+            b = b if isinstance(b, tuple) else (b,)
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"round trip {tag}: the forward differs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("  save_params -> load_module: the four networks' forwards equal "
+          "bit for bit", flush=True)
+    out["wall_s"] = time.perf_counter() - t0
+    details["training"] = out
+    return launches_all
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1760,32 +2113,44 @@ def main() -> int:
         print(f"phase 10: multi-stream tracking, {len(MS_OFFSETS)} streams "
               f"x {MS_CHUNKS} chunks with BA, then {MS_BIG} streams x 1 chunk "
               f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
-        launches = run_multistream(torch, dev, details, *slice_args)
+        ms_launches = run_multistream(torch, dev, details, *slice_args)
+        print(f"phase 11: front-end training at flagship width, "
+              f"{TRAIN_STEPS} steps of each trainer, the matcher's gradient "
+              f"through the kernel, descent, the save_params round trip "
+              f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
+        train_launches = run_training(torch, dev, details, sp)
         details["wall_s"] = time.perf_counter() - t_start
         print(f"all phases passed [{details['wall_s']:.0f} s]", flush=True)
 
         kernels = []
         S = len(MS_OFFSETS)
-        for name, rows, err, src, replaces, shape in (
+        for name, rows, err, src, replaces, shape, path, launches in (
                 ("attention", attn_rows, attn_err,
                  "gl_slam_tpu_torch/csrc/attention.cu",
                  "gl_slam_tpu/ops/attention.py:68",
-                 f"streams prologue {S}x"),
+                 f"training {TRAIN_PAIRS}x", "phase 11 (training)",
+                 train_launches),
                 ("assignment", asg_rows, asg_err,
                  "gl_slam_tpu_torch/csrc/assignment.cu",
                  "gl_slam_tpu/ops/assignment.py:128",
-                 f"streams prologue {S * CHUNK}x"),
+                 f"streams prologue {S * CHUNK}x",
+                 "phase 10 (multi-stream; not on the training path)",
+                 ms_launches),
                 ("nms", nms_rows, nms_err,
                  "gl_slam_tpu_torch/csrc/nms.cu",
-                 "gl_slam_tpu/ops/nms.py:86", f"detector {CHUNK}x")):
-            # the shape of this path (phase 10): the multi-stream prologue
-            # of 4 streams, extraction of one stream's chunk
+                 "gl_slam_tpu/ops/nms.py:86",
+                 f"train detector {CHUNK}x", "phase 11 (training)",
+                 train_launches)):
+            # the shape of this slice's path (phase 11: the matcher's
+            # training batch, the feature staging's detection); the
+            # assignment, which training does not run, at phase 10's
             head = next(r for r in rows if r["shape"].startswith(shape))
             kernels.append(dict(
                 name=name, route="cuda", source=src, replaces=replaces,
                 launches=launches[name], max_abs_err=err, ms=head["ms"],
                 plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-                bound_by=head["bound_by"], library_ms=head["library_ms"]))
+                bound_by=head["bound_by"], library_ms=head["library_ms"],
+                path=path, shape=head["shape"]))
         details["kernels"] = kernels
     except Failure as e:
         import shutil

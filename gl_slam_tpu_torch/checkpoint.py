@@ -12,6 +12,9 @@ reads them with numpy alone and turns them into the port's `state_dict`s:
     params) share the parameter tree of the per-set calls, so one
     `self_attn` / `cross_attn` entry serves both GlueLayer paths.
 
+`save_params` is the inverse: it writes a module the port trained as such
+a flat npz, which the JAX package's `load_params` reads.
+
 It also saves and restores a tracking state (`save_state` /
 `load_state`) and writes and reads trajectories as KITTI pose rows.
 """
@@ -121,6 +124,54 @@ def subpix_state_dict(flat: Mapping[str, np.ndarray]) -> dict:
         k, v = _leaf(f"dense{p[0][-1]}", p[1], a)
         out[k] = v
     return out
+
+
+_GLUE_MLP_FLAX = {v: k for k, v in _GLUE_MLP.items()}
+
+
+def _flax_path(kind: str, name: str) -> tuple:
+    """A state_dict entry's module path (e.g. "layers.0.mlp_s.2") -> its
+    Flax path (e.g. ('layer0', 'Dense_1'))."""
+    p = name.split(".")
+    if kind == "SuperPointNet":
+        if p[0] == "blocks":
+            return (f"_VGGBlock_{int(p[1])}", "Conv_0")
+        return ({"det": "Conv_0", "desc": "Conv_1"}[p[0]],)
+    if kind == "LightGlueNet":
+        if p[0] == "layers":
+            layer, rest = f"layer{int(p[1])}", ".".join(p[2:])
+            if rest in _GLUE_MLP_FLAX:
+                return (layer, _GLUE_MLP_FLAX[rest])
+            return (layer, *p[2:])
+        return tuple(p)                   # inp, final, matchability, rope
+    return (f"Dense_{int(p[0][5:])}",)    # the sub-pixel heads' dense0..2
+
+
+def save_params(path: str, module: torch.nn.Module) -> None:
+    """Write `module` (a SuperPointNet, LightGlueNet, SubpixHead or
+    PairSubpixHead) as a flat npz in the Flax layout, keyed by
+    `jax.tree_util.keystr` of the parameter tree: Conv weights OIHW ->
+    HWIO, Dense weights (out, in) -> (in, out), float32. The space-to-depth
+    stem's input channels and the detector head's 65 output channels are
+    already in the JAX order (models/superpoint.py), so they map back as
+    they are. np.savez appends ".npz" to a path without it."""
+    kind = type(module).__name__
+    if kind not in ("SuperPointNet", "LightGlueNet", "SubpixHead",
+                    "PairSubpixHead"):
+        raise TypeError(f"save_params: no Flax layout for {kind}")
+    arrays = {}
+    for name, t in module.state_dict().items():
+        owner, leaf = name.rsplit(".", 1)
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            leaf = "kernel"
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        elif leaf != "bias":
+            raise KeyError(f"save_params: unexpected parameter {name}")
+        key = "".join(f"['{p}']" for p in ("params", *_flax_path(kind, owner),
+                                           leaf))
+        arrays[key] = np.ascontiguousarray(a)
+    np.savez(path, **arrays)
 
 
 def load_module(module: torch.nn.Module, path_or_flat, convert) -> None:

@@ -60,9 +60,11 @@ class SuperPointNet(nn.Module):
         self.det = Conv(256, 65, 1, dtype)
         self.desc = Conv(256, descriptor_dim, 1, dtype)
 
-    def forward(self, img):
+    def forward(self, img, return_logits: bool = False):
         """img (B, H, W, 1) in [0, 1] -> (heat (B, H, W), desc grid
-        (B, H/8, W/8, D))."""
+        (B, H/8, W/8, D)); with `return_logits` also the raw 65-way cell
+        logits (B, H/8, W/8, 65) in the compute dtype, for the training
+        cross-entropy (train/frontend_train.py)."""
         B, H, W, _ = img.shape
         s = self.stem_stride
         x = img.permute(0, 3, 1, 2)
@@ -89,6 +91,8 @@ class SuperPointNet(nn.Module):
 
         desc = self.desc(F.relu(blk[9](feat))).float()
         desc = desc * torch.rsqrt((desc * desc).sum(1, keepdim=True) + 1e-12)
+        if return_logits:
+            return heat, desc.permute(0, 2, 3, 1), logits.permute(0, 2, 3, 1)
         return heat, desc.permute(0, 2, 3, 1)
 
 

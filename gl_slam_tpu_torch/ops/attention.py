@@ -7,6 +7,14 @@ csrc/attention.cu, which replaces the Pallas `attention_pallas` /
 `_attn_kernel`. `attention` takes the plain version only for CPU tensors: a
 CUDA tensor launches the kernel or raises.
 
+Under autograd (grad mode on and q, k or v requiring grad) `attention`
+runs the kernel through `KernelAttention`, whose backward recomputes
+`attention_plain` and returns its vector-Jacobian product, as the JAX
+package's `custom_vjp` (`_attn_bwd`) recomputes `attention_xla`: one
+kernel launch forward, none backward. `attention_cuda` itself writes into
+a fresh tensor that autograd cannot see, so it refuses such inputs rather
+than drop their gradient.
+
 The kernel gives each CTA one 128-row query tile of one (set, head). Where
 those CTAs are too few to fill the card, `split_plan` splits the keys of
 each query tile over a cluster of 2, 4 or 8 CTAs that combine their partial
@@ -113,8 +121,20 @@ def attention_tolerance(q, k, v, mask_k, scale: float):
     return (2.0 ** -7 + 2 * delta + Nk * 2.0 ** -22) * S + 1e-6
 
 
+def _wants_grad(q, k, v) -> bool:
+    return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+
+
 def attention_cuda(q, k, v, mask_k, scale: float):
-    """The CUDA kernel. bf16 q/k/v, contiguous, head dim in {32, 64, 128}."""
+    """The CUDA kernel. bf16 q/k/v, contiguous, head dim in {32, 64, 128}.
+    Raises on inputs that require grad under grad mode: the output would
+    carry no gradient back to them (`attention` routes such calls through
+    `KernelAttention`)."""
+    if _wants_grad(q, k, v):
+        raise RuntimeError("attention_cuda: q, k or v requires grad; call "
+                           "attention() (KernelAttention) so that the "
+                           "gradient is not dropped")
     lead = q.shape[:-3]
     H, Nq, dh = q.shape[-3:]
     Nk = k.shape[-2]
@@ -167,9 +187,36 @@ def attention_cuda(q, k, v, mask_k, scale: float):
     return out
 
 
+class KernelAttention(torch.autograd.Function):
+    """The kernel forward, the plain version's VJP backward (a recompute of
+    its logits and softmax in f32, freed when the call's grads are out).
+    dq, dk and dv come back in the dtypes of q, k and v; mask_k and scale
+    get none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_k, scale):
+        ctx.save_for_backward(q, k, v, mask_k)
+        ctx.scale = scale
+        return attention_cuda(q, k, v, mask_k, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask_k = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = attention_plain(*leaves, mask_k, ctx.scale)
+            grads = torch.autograd.grad(out, leaves, g)
+        grads = [gr if need else None
+                 for gr, need in zip(grads, ctx.needs_input_grad[:3])]
+        return (*grads, None, None)
+
+
 def attention(q, k, v, mask_k, scale: float):
-    """Dispatch on the device: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """Dispatch on the device: the kernel for CUDA tensors (through
+    `KernelAttention` when a gradient is wanted), the plain version for CPU
+    tensors."""
     if q.is_cuda:
+        if _wants_grad(q, k, v):
+            return KernelAttention.apply(q, k, v, mask_k, scale)
         return attention_cuda(q, k, v, mask_k, scale)
     return attention_plain(q, k, v, mask_k, scale)

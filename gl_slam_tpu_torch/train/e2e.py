@@ -4,7 +4,7 @@ Counterpart of the inference half of gl_slam_tpu/train/e2e.py: build the
 SuperPoint and LightGlue networks and the sub-pixel heads (single-view and
 pair) at the committed checkpoints' shapes, load their weights, and track
 a rendered sequence through the chunked pipeline with its periodic window
-BA and loop closing. Training is not ported.
+BA and loop closing. Training is train/frontend_train.py.
 """
 
 from __future__ import annotations

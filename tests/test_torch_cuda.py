@@ -870,3 +870,107 @@ def test_multistream_chunk_on_the_card_like_single_streams(cuda_device):
             R, t = m.kf_R[:n].cpu().numpy(), m.kf_t[:n].cpu().numpy()
             assert np.isfinite(R).all() and np.isfinite(t).all()
             assert ate(R, t, scenes[s]) < 1.0
+
+
+@pytest.mark.parametrize("lead,N,dh", [((2,), 96, 32),
+                                       ((2, 2), 2048, 128)])
+def test_attention_autograd_on_the_card(cuda_device, lead, N, dh):
+    """Under grad, attention() launches the kernel once forward and nothing
+    backward (KernelAttention), its output within attention_tolerance of
+    the plain version's, and its dq/dk/dv, bf16 like the inputs, equal to
+    the plain version's (the backward is the plain version's VJP). Shapes:
+    the tiny matcher's (2 stacked sets, 96 keypoints, dh 32) and the
+    flagship training batch's (2 pairs x 2 stacked sets x 2 heads, 2048
+    keypoints, dh 128)."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = (torch.randn(*lead, 2, N, dh, generator=g, device=cuda_device)
+               .to(torch.bfloat16) for _ in range(3))
+    mask = torch.rand(*lead, N, generator=g, device=cuda_device) < 0.8
+    cot = torch.randn(*lead, 2, N, dh, generator=g, device=cuda_device)
+    scale = dh ** -0.5
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = _build.LAUNCHES["attention"]
+    out = t_attn.attention(*leaves, mask, scale)
+    assert _build.LAUNCHES["attention"] == before + 1
+    assert out.grad_fn is not None
+    out.backward(cot)
+    assert _build.LAUNCHES["attention"] == before + 1
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = t_attn.attention_plain(*plain, mask, scale)
+    ref.backward(cot)
+    tol = t_attn.attention_tolerance(q, k, v, mask, scale)
+    assert bool(((out.detach() - ref.detach()).abs() <= tol).all())
+    for a, b in zip(leaves, plain):
+        assert a.grad.dtype == torch.bfloat16
+        assert torch.equal(a.grad, b.grad)
+    # no gradient wanted: the plain kernel call, as on the inference paths
+    with torch.no_grad():
+        again = t_attn.attention(*leaves, mask, scale)
+    assert again.grad_fn is None
+    assert _build.LAUNCHES["attention"] == before + 2
+
+
+def test_attention_cuda_refuses_inputs_that_want_a_gradient(cuda_device):
+    q = torch.zeros(2, 8, 32, dtype=torch.bfloat16, device=cuda_device)
+    m = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    before = _build.LAUNCHES["attention"]
+    for i in range(3):
+        args = [q, q, q]
+        args[i] = q.clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="requires grad"):
+            t_attn.attention_cuda(*args, m, 0.1)
+        with torch.no_grad():
+            t_attn.attention_cuda(*args, m, 0.1)
+    assert _build.LAUNCHES["attention"] == before + 3
+
+
+def test_matcher_trains_through_the_kernel(cuda_device):
+    """A tiny LightGlueNet's lightglue_loss backward on the card through
+    the kernel: every q/k/v weight gets a non-zero gradient, within 5 % of
+    the plain forward's by norm (bf16: the two forwards' attention outputs
+    differ by up to one bf16 rounding of the weights, which moves the
+    rest of the bf16 network's rounding), one forward launch per attention
+    call."""
+    from gl_slam_tpu_torch.io import synthetic
+    from gl_slam_tpu_torch.models import init_like_flax
+    from gl_slam_tpu_torch.models.lightglue import LightGlueNet
+    from gl_slam_tpu_torch.train import frontend_train as ft
+    H, W, N, D = 160, 240, 96, 64
+    scene = synthetic.make_scene(num_landmarks=700, num_frames=6, height=H,
+                                 width=W, desc_dim=D, seed=7)
+    ds = ft.stage_packs([scene], 6, N, cuda_device)
+    rng = np.random.default_rng(0)
+    desc = rng.standard_normal((6, N, D)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    desc = torch.from_numpy(desc).to(cuda_device)
+    ia = torch.tensor([0, 2], device=cuda_device)
+    ib = ia + 1
+    batch = {"desc0": desc[ia], "desc1": desc[ib], "kpts0": ds.kpts[ia],
+             "kpts1": ds.kpts[ib], "valid0": ds.valid[ia],
+             "valid1": ds.valid[ib], "lids0": ds.lids[ia],
+             "lids1": ds.lids[ib]}
+    lg = LightGlueNet(dim=64, heads=2, layers=2, input_dim=D)
+    init_like_flax(lg, torch.Generator().manual_seed(1))
+    lg.to(cuda_device)
+
+    def grads():
+        lg.zero_grad(set_to_none=True)
+        ft.lightglue_loss(lg, batch, H, W).backward()
+        return {n: p.grad.clone() for n, p in lg.named_parameters()}
+
+    before = _build.LAUNCHES["attention"]
+    got = grads()
+    assert _build.LAUNCHES["attention"] == before + 2 * 2   # 2 layers x 2
+    real = t_attn.attention
+    t_attn.attention = t_attn.attention_plain
+    try:
+        want = grads()
+    finally:
+        t_attn.attention = real
+    qkv = [n for n in got if n.rsplit(".", 2)[-2] in ("q", "k", "v")
+           and n.endswith("weight")]
+    assert len(qkv) == 2 * 2 * 3
+    for n in qkv:
+        assert float(got[n].abs().max()) > 0, n
+        assert float((got[n] - want[n]).norm()) <= 0.05 * float(
+            want[n].norm()), n

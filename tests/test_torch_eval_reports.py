@@ -13,7 +13,12 @@ card by its script; a test skips while its report is absent.
     of tests/test_multichip_scaling.py::test_ms_econ_table_bounds (the
     time-multiplexed aggregate at 2, 4, 8 and 16 streams >= 0.85 x the
     single stream), and the batched aggregate at 4 streams >= the
-    time-multiplexed one, from an NVIDIA card.
+    time-multiplexed one, from an NVIDIA card;
+  * TRAIN_TINY_TORCH.json (scripts/train_frontend_torch.py --preset tiny
+    --track-report): the weights the port trained from scratch hold the
+    bounds of tests/test_learned_e2e.py::test_learned_pipeline_tracks on
+    its held-out scene, every trainer ran and lowered its loss, and the
+    card's name and power limit stand in the report.
 """
 
 import json
@@ -74,3 +79,24 @@ def test_ms_econ_torch_report_bounds():
     batched = rep["batched_aggregate_fps_by_streams"]
     assert set(batched) == {"1", "2", "4", "8", "16"}, rep
     assert batched["4"] >= agg["4"], (batched, agg)
+
+
+def test_train_tiny_torch_report_bounds():
+    rep = _report("TRAIN_TINY_TORCH.json", "train_frontend_torch.py "
+                  "--preset tiny --track-report TRAIN_TINY_TORCH.json")
+    # nvidia-smi's "name, power.limit": e.g. "NVIDIA H100 ..., 700.00 W"
+    name, power = rep["device"].rsplit(", ", 1)
+    assert name.startswith("NVIDIA"), rep["device"]
+    assert power.endswith(" W") and float(power[:-2]) > 0, rep["device"]
+    assert rep["preset"] == "tiny", rep
+    assert set(rep["trainers"]) == {"superpoint", "subpix", "pair_subpix",
+                                    "lightglue"}, rep
+    for name, t in rep["trainers"].items():
+        assert t["steps"] > 0 and t["wall_s"] > 0 and t["step_ms"] > 0, name
+        assert t["last_loss"] < t["first_loss"], (name, t)
+    res = rep["trained"]
+    assert res["ate_m"] < 1.0, res
+    assert res["num_keyframes"] == 32, res
+    assert res["mean_matches"] > 50, res
+    assert res["num_ba_runs"] >= 5, res
+    assert rep["committed"]["num_keyframes"] == 32, rep

@@ -57,8 +57,12 @@ def test_scan_sees_the_package():
                    os.path.join("slam", "pipeline.py"),
                    os.path.join("models", "classical.py")):
         assert os.path.join("gl_slam_tpu_torch", module) in names
-    for script in ("eval_flagship_torch.py", "eval_loopclose_torch.py"):
+    for script in ("eval_flagship_torch.py", "eval_loopclose_torch.py",
+                   "train_frontend_torch.py",
+                   "train_pair_subpix_tiny_torch.py"):
         assert os.path.join("scripts", script) in names
+    assert os.path.join("gl_slam_tpu_torch", "train",
+                        "frontend_train.py") in names
 
 
 @pytest.fixture
@@ -120,3 +124,59 @@ def test_per_frame_entry_points_default_to_the_card(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["run", "--out", str(out), *extra])
         assert not out.exists()
+
+
+def test_trainers_default_to_the_card(no_cuda):
+    """The four trainers without a device raise before they render or
+    train anything; with device="cpu" they run (test_torch_train_*.py)."""
+    from gl_slam_tpu_torch.io import synthetic
+    from gl_slam_tpu_torch.models.lightglue import LightGlueNet
+    from gl_slam_tpu_torch.models.subpix import PairSubpixHead, SubpixHead
+    from gl_slam_tpu_torch.models.superpoint import SuperPointNet
+    from gl_slam_tpu_torch.train import frontend_train as ft
+    scene = synthetic.make_scene(num_landmarks=50, num_frames=4, height=32,
+                                 width=48, desc_dim=16, seed=0)
+    sp = SuperPointNet(descriptor_dim=16, channels=(4,) * 8)
+    before = {k: v.clone() for k, v in sp.state_dict().items()}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ft.train_superpoint(sp, scene, 4, 8, steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ft.train_subpix(SubpixHead(16), sp, scene, 4, 8, steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ft.train_pair_subpix(PairSubpixHead(16), sp, scene, 4, 8, steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ft.train_lightglue(LightGlueNet(dim=16, heads=2, layers=1,
+                                        input_dim=16), sp, scene, 4, 8,
+                           steps=1)
+    for k, v in sp.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    ft.train_superpoint(sp, scene, 4, 8, steps=1, device="cpu")
+
+
+def _load_script(name):
+    import importlib.util
+    path = os.path.join(ROOT, "scripts", name)
+    spec = importlib.util.spec_from_file_location(name[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("script", ["train_frontend_torch.py",
+                                    "train_pair_subpix_tiny_torch.py"])
+def test_training_scripts_refuse_the_committed_checkpoints(script,
+                                                           tmp_path):
+    """--out may not be checkpoints/ (nor a directory in it), however it is
+    spelled; the refusal comes before any device or training work. The
+    default is the git-ignored trained_torch/."""
+    mod = _load_script(script)
+    ckpt = os.path.join(ROOT, "checkpoints")
+    for out in (ckpt, ckpt + "/", os.path.join(ROOT, "scripts", "..",
+                                               "checkpoints"),
+                os.path.join(ckpt, "sub")):
+        with pytest.raises(ValueError, match="checkpoints/"):
+            mod.main(["--out", out, "--device", "cpu"])
+    assert os.path.realpath(mod.DEFAULT_OUT) == os.path.realpath(
+        os.path.join(ROOT, "trained_torch"))
+    assert "trained_torch/" in open(os.path.join(ROOT, ".gitignore")).read()
+    assert mod.checked_out_dir(str(tmp_path)) == str(tmp_path)
