@@ -42,7 +42,12 @@ Phases (any failure exits non-zero and prints no result line):
      every 8, so a bootstrap, three chunks and a tail of 5 real frames
      padded to 8 and gated off; check the report (31 frames fed and
      tracked, 3 rejected, ATE, matches over the real frames, BA count, 0
-     recoveries), the artifacts and the launch counts after the warm-up;
+     recoveries), the artifacts and the launch counts after the warm-up.
+     The KITTI route reads through the native PNG prefetch loader where it
+     builds (g++ with libpng), else with PIL: the phase prints which, holds
+     the loader's frame counter to the frames fed (0 on PIL), and prints
+     the host ms per frame spent waiting for frames (with the loader, also
+     the same run on PIL beside it);
   8. run the command line's per-frame route on the same directory:
      `--frontend superpoint --per-frame --preset flagship` (batch-1
      extraction through the NMS kernel at the CLI's radius 3, LightGlue
@@ -52,7 +57,9 @@ Phases (any failure exits non-zero and prints no result line):
      implies; a profiled run of its first 12 frames for the idle share and
      host time by stage; then `--frontend harris` at full width (NMS kernel
      at radius 4) and the default oracle route (synthetic sequence), each
-     with `--live-viz 8 --checkpoint`, and their artifacts.
+     with `--live-viz 8 --checkpoint`, and their artifacts; the learned
+     run's frame fetches, loader counter and host wait per frame as in
+     phase 7.
   9. run the chunked tracker of phase 3 (same frames, BA every 8, centroid
      refinement, loop closing off, same draws) once per tracker option:
      the batched and the merged re-observation modes (one matcher pass a
@@ -74,8 +81,12 @@ Phases (any failure exits non-zero and prints no result line):
      coordinates) within phase 3's bound, and its keyframe poses within
      the bound stated there of its own single-stream run on the same
      draws; attention and assignment launch as often per chunk as for one
-     stream; then one chunk at 16 streams (BASELINE configs[4]), with the
-     peak memory and the launch counts.
+     stream; then the four streams for one chunk, each through its own
+     camera (K (S, 3, 3): f and the principal point moved by 1-3 %, the
+     frames rendered through it), each held to its own single-stream run
+     with its own K within the same bound, attention and assignment again
+     as for one stream; then one chunk at 16 streams (BASELINE
+     configs[4]), with the peak memory and the launch counts.
 Phase 2 also holds attention and the assignment at the loop detector's
 shapes (2 candidates' 256-row keyframe databases against the 2048-keypoint
 frame, random database masks, one empty database) and at the per-frame
@@ -100,10 +111,17 @@ re-observation sets; NMS of 16 maps, extraction in groups of 2 streams).
      by the port's loader into bit-equal forwards.
 Phase 2 also holds attention and NMS at the training shapes (2 pairs x 2
 sets x 2 heads, 2048 x 2048; 8 maps of 376 x 1240 at radius 3).
-The line before the last is the `kernels` JSON (attention and NMS at the
-training shapes with phase 11's launches, the assignment, which training
-does not run, at phase 10's); the last line is the device JSON. Details go
-to chiprun_out/chip_smoke.json.
+ 12. the batched entry points on the card with the committed flagship
+     weights: SuperPointExtractor on two rendered frames and
+     LightGlueMatcher on their pair, held to their launch counts and equal
+     bit for bit to the chunk's extraction (a one-pixel refinement window)
+     and the prologue's matcher; then the native covisibility graph
+     (runtime/native_lib.CovisGraph, built with g++) over phase 3's final
+     keyframe / point table: its edge count against the plain rule, one
+     query and one points_of.
+The line before the last is the `kernels` JSON (the three kernels at the
+shapes of phase 10's distinct-K run, with its launches); the last line is
+the device JSON. Details go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -156,6 +174,11 @@ MS_CHUNKS = 2
 MS_BIG = 16
 MS_BIG_GROUP = 2
 MS_STREAMS = (len(MS_OFFSETS), MS_BIG)
+# Then the four streams again for one chunk, each with its own camera: f
+# and the principal point moved by these fractions (KITTI's sequences 00-02,
+# 03 and 04-12 come with three calibrations).
+MS_F_MOVE = (0.01, -0.02, 0.03, -0.015)
+MS_C_MOVE = (-0.01, 0.02, -0.03, 0.015)
 # Front-end training at flagship width (phase 11): the flagship preset of
 # scripts/train_frontend_torch.py (376 x 1240, N 2048, D 256), one scene of
 # 20000 landmarks, TRAIN_FRAMES rendered frames, TRAIN_STEPS steps of each
@@ -899,8 +922,9 @@ def run_slice(torch, dev, details, cfg, sp, lg, scene, stack):
         num_inliers=o.num_inliers.tolist(),
         num_map_matches=o.num_map_matches.tolist())
     # the keyframe poses of the three plain runs of the same frames, for
-    # phase 9's comparison
-    return [(d["R"], d["t"]) for d in (warm, profiled, diag)]
+    # phase 9's comparison; the counted run's map for phase 12
+    return [(d["R"], d["t"]) for d in (warm, profiled, diag)], \
+        diag["state"].map
 
 
 def run_no_ba(torch, dev, details, cfg, sp, lg, scene, stack):
@@ -1197,6 +1221,56 @@ def run_options(torch, dev, details, cfg, sp, lg, scene, stack, slice_poses):
     details["options"] = out
 
 
+class FrameWaits:
+    """Within the block, every frame the command line fetches is timed on
+    the host (`cli._open_dataset`'s frame function wrapped), and the
+    native loader's frame counter starts from 0: `ms_per_frame`, `frames`
+    and `delivered` after it."""
+
+    def __enter__(self):
+        from gl_slam_tpu_torch import cli
+        from gl_slam_tpu_torch.runtime import native_lib
+        self._cli, self._lib = cli, native_lib
+        self._orig = cli._open_dataset
+        self.waits = []
+
+        def wrapped(args):
+            src, K, gt_R, gt_t, frame, gate = self._orig(args)
+
+            def timed(i):
+                t0 = time.perf_counter()
+                img = frame(i)
+                self.waits.append(time.perf_counter() - t0)
+                return img
+            return src, K, gt_R, gt_t, timed, gate
+
+        cli._open_dataset = wrapped
+        native_lib.reset_frame_count()
+        return self
+
+    def __exit__(self, *exc):
+        self._cli._open_dataset = self._orig
+        self.frames = len(self.waits)
+        self.delivered = self._lib.DELIVERED["frames"]
+        self.ms_per_frame = 1e3 * sum(self.waits) / max(self.frames, 1)
+        return False
+
+
+def native_loader_state():
+    """(built, message): whether the native PNG loader builds on this
+    machine (g++ with the libpng headers and library), and what the
+    command line therefore reads KITTI frames with."""
+    from gl_slam_tpu_torch.runtime import native_lib
+    if native_lib.available():
+        return True, ("native PNG loader built "
+                      f"({native_lib.library_path('loader')})")
+    err = (native_lib.build_error() or "").strip().splitlines()
+    why = next((ln for ln in err if "error" in ln.lower()),
+               err[0] if err else "")
+    return False, (f"native PNG loader not built on this machine ({why}); "
+                   f"the command line reads KITTI frames with PIL")
+
+
 def run_cli(torch, dev, details):
     """The chunked route through the entry point a user calls:
     `gl_slam_tpu_torch.cli.main(["run", ...])` on the card (no --device)
@@ -1242,12 +1316,14 @@ def run_cli(torch, dev, details):
             "--weights", os.path.join(ROOT, "checkpoints"),
             "--first-frame", "0", "--last-frame", str(CLI_FRAMES - 1),
             "--chunk", str(chunk), "--ba-every", str(ba_every), "--out", out]
+    native, native_msg = native_loader_state()
+    print(f"  {native_msg}", flush=True)
     stdout = io.StringIO()
     ChunkedPipeline.warmup = counted_warmup
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(stdout):
+        with contextlib.redirect_stdout(stdout), FrameWaits() as fw:
             rc = cli.main(argv)
         torch.cuda.synchronize()
     finally:
@@ -1255,8 +1331,33 @@ def run_cli(torch, dev, details):
     wall = time.perf_counter() - t0
     check(rc == 0, f"command line: exit code {rc}")
     check("pipe" in seen, "command line: no warm-up chunk ran")
-    report = json.loads(stdout.getvalue())
     launches = {k: v - seen["warmup"][k] for k, v in _build.LAUNCHES.items()}
+    check(fw.frames == CLI_FRAMES, f"command line: {fw.frames} frame "
+          f"fetches for {CLI_FRAMES} frames")
+    check(fw.delivered == (CLI_FRAMES if native else 0),
+          f"command line: the native loader delivered {fw.delivered} "
+          f"frames ({native_msg})")
+    waits = {"native" if native else "pil": fw.ms_per_frame}
+    if native:
+        # the same run on PIL into a directory of its own, for the host
+        # wait per frame beside the loader's
+        from gl_slam_tpu_torch.runtime import native_lib
+        available = native_lib.available
+        native_lib.available = lambda: False
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    FrameWaits() as fw_pil:
+                check(cli.main(argv[:-1] + [out + "_pil"]) == 0,
+                      "command line on PIL failed")
+            torch.cuda.synchronize()
+        finally:
+            native_lib.available = available
+            shutil.rmtree(out + "_pil", ignore_errors=True)
+        waits["pil"] = fw_pil.ms_per_frame
+    print(f"  host wait for frames: " + ", ".join(
+        f"{k} {v:.2f} ms a frame" for k, v in waits.items())
+        + f" over {CLI_FRAMES} frames", flush=True)
+    report = json.loads(stdout.getvalue())
     want = expected_launches(CLI_CHUNKS)
     pipe = seen["pipe"]
     o = pipe.stacked_outputs()
@@ -1317,6 +1418,8 @@ def run_cli(torch, dev, details):
         num_recoveries=pipe.num_recoveries, launches=launches,
         expected_launches=want, warmup_launches=seen["warmup"],
         png_write_s=write_s, phase_wall_s=wall,
+        native_loader=native_msg, frames_delivered_by_loader=fw.delivered,
+        frame_wait_ms_per_frame=waits,
         num_matches=o.num_matches.tolist(),
         frame_ok=o.frame_ok.tolist())
     return data
@@ -1345,7 +1448,7 @@ def run_cli_capture(torch, argv):
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(stdout):
+        with contextlib.redirect_stdout(stdout), FrameWaits() as fw:
             rc = cli.main(argv)
         torch.cuda.synchronize()
     finally:
@@ -1353,6 +1456,7 @@ def run_cli_capture(torch, argv):
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     check(rc == 0, f"{' '.join(argv[:4])}: exit code {rc}")
+    seen["pipe"].frame_waits = fw
     return json.loads(stdout.getvalue()), seen["pipe"], launches, wall
 
 
@@ -1418,6 +1522,18 @@ def run_per_frame(torch, details, data):
     inliers = float(o.num_inliers[1:].mean())
     print(f"  superpoint --per-frame: report {json.dumps(report)}",
           flush=True)
+    native, native_msg = native_loader_state()
+    fw = pipe.frame_waits
+    fed = CLI_FRAMES - gated
+    print(f"  {native_msg}: {fw.frames} frames fetched, host wait "
+          f"{fw.ms_per_frame:.2f} ms a frame, {fw.delivered} delivered by "
+          f"the native loader", flush=True)
+    check(fw.frames == fed, f"per-frame route: {fw.frames} frame fetches "
+          f"for {fed} frames fed")
+    check(fed <= fw.delivered <= CLI_FRAMES if native
+          else fw.delivered == 0,
+          f"per-frame route: the native loader delivered {fw.delivered} "
+          f"frames")
     print(f"  frames tracked {report['frames_tracked']} of {CLI_FRAMES} "
           f"({gated} gated), rejected {int((~o.frame_ok).sum())}; mean "
           f"matches {matches:.1f}, inliers {inliers:.1f}; ATE "
@@ -1487,7 +1603,9 @@ def run_per_frame(torch, details, data):
         report=report, mean_matches=matches, mean_inliers=inliers,
         num_recoveries=pipe.num_recoveries, launches=launches,
         expected_launches=want, wall_s=wall, profile=prof,
-        profile_frames=PF_PROFILE_FRAMES,
+        profile_frames=PF_PROFILE_FRAMES, native_loader=native_msg,
+        frames_delivered_by_loader=fw.delivered,
+        frame_wait_ms_per_frame=fw.ms_per_frame,
         num_matches=o.num_matches.tolist(),
         frame_ok=o.frame_ok.tolist(), **runs)
     for d in outs.values():            # the checkpoints: keep what comes
@@ -1517,6 +1635,16 @@ def _gt_scale(scene, o):
     return float(np.linalg.norm(c[1] - c[0]))
 
 
+def _camera(K, s):
+    """Stream s's camera: K with f moved by MS_F_MOVE[s] and the principal
+    point by MS_C_MOVE[s] (relative)."""
+    import numpy as np
+    K = np.array(K, np.float64)
+    K[[0, 1], [0, 1]] *= 1 + MS_F_MOVE[s]
+    K[[0, 1], [2, 2]] *= 1 + MS_C_MOVE[s]
+    return K
+
+
 def _stream_ate(scene, R, t, n, o):
     """ATE (m) of a stream's first n keyframes (its frame i is scene frame
     o + i) against the ground truth in the camera coordinates of scene
@@ -1530,48 +1658,56 @@ def _stream_ate(scene, R, t, n, o):
 
 
 def run_multistream(torch, dev, details, cfg, sp, lg, scene, stack):
-    """This slice's path: S streams through MultiStreamTracker's bootstrap,
-    multi-stream chunks (slam/fused.build_multistream_chunk_fn) and the
-    tracker's stream-batched window BA; each stream held to its own
-    single-stream run (the same extraction batches, draws and window)."""
+    """S streams through MultiStreamTracker's bootstrap, multi-stream
+    chunks (slam/fused.build_multistream_chunk_fn) and the tracker's
+    stream-batched window BA; each stream held to its own single-stream
+    run (the same extraction batches, draws and window). Then this slice's
+    path: four streams, each with its own camera (K (S, 3, 3)), and last
+    16 streams. Returns the launches of the distinct-K run."""
     import numpy as np
 
+    from gl_slam_tpu_torch.io import synthetic
     from gl_slam_tpu_torch.ops import _build
     from gl_slam_tpu_torch.parallel.multistream import MultiStreamTracker
     from gl_slam_tpu_torch.slam import ba as ba_mod
     from gl_slam_tpu_torch.slam import frontend, fused
     from gl_slam_tpu_torch.slam.state import _at
 
-    K = torch.as_tensor(scene.K, dtype=torch.float32, device=dev)
     hyp = cfg.geometry.essential_hypotheses
     frames = torch.from_numpy(stack).to(dev)
     extract = fused.build_extract_fn(cfg, sp)
     win_kf = CHUNK + cfg.ba.full_ba_overlap
 
-    def boot_feats(offsets, group):
+    # A stream's view: (its frames, the index of its frame 0 in them, the
+    # scene frame of its frame 0).
+    def shared(offsets):
+        return [(frames, o, o) for o in offsets]
+
+    def boot_feats(views, group):
         """Features of each stream's frames 0 and 1, one extraction per
         group of streams -> two (S, N, ...) tuples."""
         per = []
-        for j in range(0, len(offsets), group):
-            imgs = torch.stack([frames[o + i] for o in offsets[j:j + group]
+        for j in range(0, len(views), group):
+            imgs = torch.stack([fr[i0 + i] for fr, i0, _ in views[j:j + group]
                                 for i in (0, 1)])
             per.append(extract(imgs))
         kp, de, va = (torch.cat([f[k] for f in per]).unflatten(0, (-1, 2))
                       for k in range(3))
         return (kp[:, 0], de[:, 0], va[:, 0]), (kp[:, 1], de[:, 1], va[:, 1])
 
-    def ms_run(offsets, n_chunks, group, u_boot, u_chunks):
-        S = len(offsets)
-        tr = MultiStreamTracker(cfg, scene.K, S, device=dev)
-        f0, f1 = boot_feats(offsets, group)
-        tr.bootstrap(f0, f1, [_gt_scale(scene, o) for o in offsets],
+    def ms_run(views, n_chunks, group, u_boot, u_chunks, K=scene.K):
+        S = len(views)
+        tr = MultiStreamTracker(cfg, K, S, device=dev)
+        f0, f1 = boot_feats(views, group)
+        tr.bootstrap(f0, f1, [_gt_scale(scene, o) for _, _, o in views],
                      u=u_boot)
-        fn = fused.build_multistream_chunk_fn(cfg, sp, lg, scene.K, CHUNK, S,
+        fn = fused.build_multistream_chunk_fn(cfg, sp, lg, K, CHUNK, S,
                                               extract_group=group)
         outs, recs = [], []
         for c in range(n_chunks):
             a = 2 + c * CHUNK
-            imgs = torch.stack([frames[o + a:o + a + CHUNK] for o in offsets])
+            imgs = torch.stack([fr[i0 + a:i0 + a + CHUNK]
+                                for fr, i0, _ in views])
             st, o_c, r_c = fn(tr.state, imgs, a, u_chunks[c])
             tr.state = st
             nk = st.map.num_kf
@@ -1582,10 +1718,12 @@ def run_multistream(torch, dev, details, cfg, sp, lg, scene, stack):
         tr.block()
         return tr, outs, recs
 
-    def single_run(o, u_boot, u_chunks, n_chunks):
+    def single_run(view, K, u_boot, u_chunks, n_chunks):
         """One stream through the unbatched functions."""
+        fr, i0, o = view
+        K = torch.as_tensor(K, dtype=torch.float32, device=dev)
         st = frontend.init_track_state(cfg, device=dev)
-        f0, f1 = boot_feats([o], 1)
+        f0, f1 = boot_feats([view], 1)
         st, _ = frontend.bootstrap_step(
             cfg, K, st,
             frontend.FrameFeatures(*(x[0] for x in f0), torch.zeros(
@@ -1597,7 +1735,7 @@ def run_multistream(torch, dev, details, cfg, sp, lg, scene, stack):
         outs = []
         for c in range(n_chunks):
             a = 2 + c * CHUNK
-            st, o_c, _ = fn(st, frames[o + a:o + a + CHUNK], a, u_chunks[c])
+            st, o_c, _ = fn(st, fr[i0 + a:i0 + a + CHUNK], a, u_chunks[c])
             nk = st.map.num_kf
             first = torch.clamp_min(nk - win_kf, 0)
             m = ba_mod.ba_step(cfg, K, st.map, first, nk - first)
@@ -1607,19 +1745,67 @@ def run_multistream(torch, dev, details, cfg, sp, lg, scene, stack):
             outs += o_c
         return st, outs
 
+    def against_singles(tr, outs, views, Ks, u_boot, u_chunks, n_chunks,
+                        what):
+        """Each stream of a multi-stream run against its own single-stream
+        run. Bound: the whole-run bounds between the JAX package and the
+        port (tests/test_torch_slice.py), 1e-3 on rotation entries and
+        5e-2 m: phase 3's repeated runs are bit-identical, but a batched
+        product sums in another order than an unbatched one, and a
+        correspondence that lands on the other side of a threshold moves a
+        pose by centimetres."""
+        n_kf = 2 + n_chunks * CHUNK
+        st = tr.state
+        ok = torch.stack([o.frame_ok for o in outs]).cpu().numpy()
+        kR, kt = st.map.kf_R.cpu().numpy(), st.map.kf_t.cpu().numpy()
+        streams = []
+        for s, view in enumerate(views):
+            o = view[2]
+            st1, outs1 = single_run(view, Ks[s], u_boot[s],
+                                    [u[s] for u in u_chunks], n_chunks)
+            R1 = st1.map.kf_R[:n_kf].cpu().numpy()
+            t1 = st1.map.kf_t[:n_kf].cpu().numpy()
+            gap = (float(np.abs(kR[s, :n_kf] - R1).max()),
+                   float(np.abs(kt[s, :n_kf] - t1).max()))
+            ate = _stream_ate(scene, kR[s], kt[s], n_kf, o)
+            ate1 = _stream_ate(scene, R1, t1, n_kf, o)
+            d_inl = max(abs(int(a.num_inliers[s]) - int(b.num_inliers))
+                        for a, b in zip(outs, outs1))
+            d_map = max(abs(int(a.num_map_matches[s])
+                            - int(b.num_map_matches))
+                        for a, b in zip(outs, outs1))
+            mm = float(np.mean([int(a.num_matches[s]) for a in outs]))
+            print(f"  {what} stream {s} (offset {o}): {int(ok[:, s].sum())}/"
+                  f"{n_chunks * CHUNK} frames, mean matches {mm:.1f}, ATE "
+                  f"{ate:.4f} m (single-stream run {ate1:.4f} m), keyframe "
+                  f"poses vs the single-stream run {gap[0]:.3g} (R) "
+                  f"{gap[1]:.3g} m (t), count differences inliers {d_inl} "
+                  f"map matches {d_map}", flush=True)
+            check(ate <= 1.0, f"{what} stream {s}: ATE {ate} m > 1 m")
+            check(int(st1.map.num_kf) == n_kf, f"{what} stream {s}: the "
+                  f"single-stream run kept {int(st1.map.num_kf)} keyframes")
+            check(gap[0] <= 1e-3 and gap[1] <= 5e-2, f"{what} stream {s}: "
+                  f"keyframe poses {gap} from its single-stream run")
+            streams.append(dict(offset=o, ate_m=ate, single_ate_m=ate1,
+                                pose_gap_R=gap[0], pose_gap_t_m=gap[1],
+                                mean_matches=mm, inlier_count_diff=d_inl,
+                                map_match_count_diff=d_map))
+        return streams
+
     S = len(MS_OFFSETS)
     n_kf = 2 + MS_CHUNKS * CHUNK
+    views = shared(MS_OFFSETS)
     u_boot, u_chunks = _stream_draws(torch, dev, S, MS_CHUNKS, hyp, 1000)
     per_chunk = {k: v - expected_launches(0)[k]
                  for k, v in expected_launches(1).items()}
     # warm-up (first calls at the stream-batched shapes), then the counted
     # run: launch counters set to 0 just before it and read just after
-    ms_run(MS_OFFSETS, 1, 1, u_boot, u_chunks)
+    ms_run(views, 1, 1, u_boot, u_chunks)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    tr, outs, recs = ms_run(MS_OFFSETS, MS_CHUNKS, 1, u_boot, u_chunks)
+    tr, outs, recs = ms_run(views, MS_CHUNKS, 1, u_boot, u_chunks)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -1630,7 +1816,6 @@ def run_multistream(torch, dev, details, cfg, sp, lg, scene, stack):
     st = tr.state
     ok = torch.stack([o.frame_ok for o in outs]).cpu().numpy()    # (T, S)
     n_rec = int(np.asarray(recs).sum())
-    kR, kt = st.map.kf_R.cpu().numpy(), st.map.kf_t.cpu().numpy()
     num_kf = st.map.num_kf.cpu().numpy()
     print(f"  {S} streams at offsets {list(MS_OFFSETS)}: bootstrap + "
           f"{MS_CHUNKS} chunks of {CHUNK} + {MS_CHUNKS} BA passes in "
@@ -1647,52 +1832,61 @@ def run_multistream(torch, dev, details, cfg, sp, lg, scene, stack):
     check(all(bool(torch.isfinite(x).all()) for x in (*st.map, *st[1:])
               if torch.is_tensor(x) and x.is_floating_point()),
           "multi-stream: non-finite state")
-    # each stream against its own single-stream run. Bound: the whole-run
-    # bounds between the JAX package and the port (tests/
-    # test_torch_slice.py), 1e-3 on rotation entries and 5e-2 m: phase 3's
-    # repeated runs are bit-identical, but a batched product sums in
-    # another order than an unbatched one, and a correspondence that lands
-    # on the other side of a threshold moves a pose by centimetres.
-    streams = []
+    streams = against_singles(tr, outs, views, [scene.K] * S, u_boot,
+                              u_chunks, MS_CHUNKS, "shared K")
+
+    # this slice's path: each stream its own camera, K (S, 3, 3), with f
+    # and the principal point moved by 1-3 % as KITTI's calibrations
+    # differ; each stream's frames rendered through its own camera
+    t0 = time.perf_counter()
+    Ks = [_camera(scene.K, s) for s in range(S)]
+    k_views = []
     for s, o in enumerate(MS_OFFSETS):
-        st1, outs1 = single_run(o, u_boot[s], [u[s] for u in u_chunks],
-                                MS_CHUNKS)
-        R1 = st1.map.kf_R[:n_kf].cpu().numpy()
-        t1 = st1.map.kf_t[:n_kf].cpu().numpy()
-        gap = (float(np.abs(kR[s, :n_kf] - R1).max()),
-               float(np.abs(kt[s, :n_kf] - t1).max()))
-        ate = _stream_ate(scene, kR[s], kt[s], n_kf, o)
-        ate1 = _stream_ate(scene, R1, t1, n_kf, o)
-        d_inl = max(abs(int(a.num_inliers[s]) - int(b.num_inliers))
-                    for a, b in zip(outs, outs1))
-        d_map = max(abs(int(a.num_map_matches[s]) - int(b.num_map_matches))
-                    for a, b in zip(outs, outs1))
-        mm = float(np.mean([int(a.num_matches[s]) for a in outs]))
-        print(f"  stream {s} (offset {o}): {int(ok[:, s].sum())}/"
-              f"{MS_CHUNKS * CHUNK} frames, mean matches {mm:.1f}, ATE "
-              f"{ate:.4f} m (single-stream run {ate1:.4f} m), keyframe poses "
-              f"vs the single-stream run {gap[0]:.3g} (R) {gap[1]:.3g} m (t), "
-              f"count differences inliers {d_inl} map matches {d_map}",
-              flush=True)
-        check(ate <= 1.0, f"stream {s}: ATE {ate} m > 1 m")
-        check(int(st1.map.num_kf) == n_kf, f"stream {s}: the single-stream "
-              f"run kept {int(st1.map.num_kf)} keyframes")
-        check(gap[0] <= 1e-3 and gap[1] <= 5e-2, f"stream {s}: keyframe "
-              f"poses {gap} from its single-stream run")
-        streams.append(dict(offset=o, ate_m=ate, single_ate_m=ate1,
-                            pose_gap_R=gap[0], pose_gap_t_m=gap[1],
-                            mean_matches=mm, inlier_count_diff=d_inl,
-                            map_match_count_diff=d_map))
+        sc = scene._replace(K=Ks[s])
+        imgs = np.stack([synthetic.render_frame(
+            sc, o + i, max_keypoints=cfg.frontend.max_keypoints)
+            for i in range(2 + CHUNK)]).astype(np.float32)
+        k_views.append((torch.from_numpy(imgs).to(dev), 0, o))
+    render_s = time.perf_counter() - t0
+    uk_boot, uk_chunks = _stream_draws(torch, dev, S, 1, hyp, 3000)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    trk, outs_k, recs_k = ms_run(k_views, 1, 1, uk_boot, uk_chunks,
+                                 K=np.stack(Ks).astype(np.float32))
+    torch.cuda.synchronize()
+    wall_k = time.perf_counter() - t0
+    launches_k = dict(_build.LAUNCHES)
+    want_k = {"attention": per_chunk["attention"],
+              "assignment": per_chunk["assignment"], "nms": 2 * S}
+    ok_k = torch.stack([o.frame_ok for o in outs_k]).cpu().numpy()
+    n_rec_k = int(np.asarray(recs_k).sum())
+    kf_k = trk.state.map.num_kf.cpu().numpy()
+    print(f"  {S} streams with distinct K (fx "
+          f"{[round(float(K[0, 0]), 2) for K in Ks]}, cx "
+          f"{[round(float(K[0, 2]), 2) for K in Ks]}; {S * (2 + CHUNK)} "
+          f"frames rendered in {render_s:.1f} s): bootstrap + 1 chunk + BA in "
+          f"{wall_k:.2f} s ({S * CHUNK / wall_k:.2f} tracked frames/s "
+          f"aggregate, bootstrap included), keyframes {kf_k.tolist()}, "
+          f"recovery-branch frames {n_rec_k}, launches {launches_k} "
+          f"(expected {want_k})", flush=True)
+    check(launches_k == want_k, f"distinct K: launch counts {launches_k} != "
+          f"{want_k} (attention and assignment per chunk as for one stream)")
+    check(ok_k.all() and (kf_k == 2 + CHUNK).all() and n_rec_k == 0,
+          f"distinct K: frames kept {ok_k.sum(0).tolist()}, recovery-branch "
+          f"frames {n_rec_k}")
+    streams_k = against_singles(trk, outs_k, k_views, Ks, uk_boot, uk_chunks,
+                                1, "distinct K")
 
     # sixteen streams, one chunk (BASELINE configs[4])
     offs = tuple(range(MS_BIG))
     ub, uc = _stream_draws(torch, dev, MS_BIG, 1, hyp, 2000)
-    ms_run(offs, 1, MS_BIG_GROUP, ub, uc)             # warm-up
+    ms_run(shared(offs), 1, MS_BIG_GROUP, ub, uc)     # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    tr16, outs16, recs16 = ms_run(offs, 1, MS_BIG_GROUP, ub, uc)
+    tr16, outs16, recs16 = ms_run(shared(offs), 1, MS_BIG_GROUP, ub, uc)
     torch.cuda.synchronize()
     wall16 = time.perf_counter() - t0
     launches16 = dict(_build.LAUNCHES)
@@ -1723,12 +1917,130 @@ def run_multistream(torch, dev, details, cfg, sp, lg, scene, stack):
         offsets=list(MS_OFFSETS), chunks=MS_CHUNKS, wall_s=wall,
         launches=launches, expected_launches=want,
         peak_allocated_bytes=peak, streams=streams,
+        distinct_K=dict(K=[np.asarray(K).tolist() for K in Ks], chunks=1,
+                        wall_s=wall_k, render_s=render_s,
+                        launches=launches_k, expected_launches=want_k,
+                        streams=streams_k),
         big=dict(streams=MS_BIG, extract_group=MS_BIG_GROUP, wall_s=wall16,
                  launches=launches16, expected_launches=want16,
                  peak_allocated_bytes=peak16,
                  frames_kept=int(ok16.sum()),
                  recovery_frames=int(np.asarray(recs16).sum())))
-    return launches
+    return launches_k
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the batched entry points and the covisibility graph
+
+def _covis_edges_plain(table, threshold):
+    """The covisibility graph's edge count by the plain rule: keyframes
+    enter in order; an edge joins a keyframe to each earlier one that
+    observed at least `threshold` of its points (ids < 0 ignored)."""
+    observers, edges = {}, 0
+    for kf, ids in enumerate(table):
+        shared = {}
+        for p in ids:
+            if p < 0:
+                continue
+            for other in observers.get(p, []):
+                if other != kf:
+                    shared[other] = shared.get(other, 0) + 1
+            observers.setdefault(p, []).append(kf)
+        edges += sum(1 for w in shared.values() if w >= threshold)
+    return edges
+
+
+def run_entry_points(torch, dev, details, cfg, sp, lg, stack, slice_map):
+    """SuperPointExtractor and LightGlueMatcher on the card with the
+    committed flagship weights, on the first two rendered frames: launch
+    counts, and the features and matches equal bit for bit to the chunk's
+    own extraction (with a one-pixel refinement window, which leaves the
+    integer detections as they are) and to the prologue's matcher; then
+    CovisGraph over phase 3's final keyframe / point table: its edge count
+    against the plain rule, and one query."""
+    import dataclasses
+
+    import numpy as np
+
+    from gl_slam_tpu_torch.models.lightglue import LightGlueMatcher
+    from gl_slam_tpu_torch.models.superpoint import SuperPointExtractor
+    from gl_slam_tpu_torch.ops import _build
+    from gl_slam_tpu_torch.runtime import native_lib
+    from gl_slam_tpu_torch.slam import fused
+
+    fe = cfg.frontend
+    H, W, N = fe.image_height, fe.image_width, fe.max_keypoints
+    ex = SuperPointExtractor(H, W, max_keypoints=N,
+                             score_threshold=fe.score_threshold,
+                             nms_radius=fe.nms_radius, net=sp)
+    mt = LightGlueMatcher(H, W, threshold=0.0, net=lg)
+    imgs = torch.from_numpy(stack[:2]).to(dev)
+    ex(imgs)                                    # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    kp, sc, de, va = ex(imgs)
+    m = mt(kp[:1], de[:1], va[:1], kp[1:], de[1:], va[1:])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    want = {"attention": 18, "assignment": ASSIGN_KERNELS_PER_CALL,
+            "nms": 1}
+    cfg1 = dataclasses.replace(cfg, frontend=dataclasses.replace(
+        fe, subpix_patch=1))
+    with torch.no_grad():
+        k2, d2, v2 = fused.build_extract_fn(cfg1, sp)(imgs)
+        m2 = fused.build_matcher(cfg, lg)(k2[:1], d2[:1], v2[:1], k2[1:],
+                                          d2[1:], v2[1:])
+    same_f = all(torch.equal(a, b) for a, b in ((kp, k2), (de, d2),
+                                                (va, v2)))
+    same_m = torch.equal(m.matches0, m2.matches0) and torch.equal(
+        m.mscores0, m2.mscores0)
+    n_match = int((m.matches0 >= 0).sum())
+    print(f"  SuperPointExtractor 2x{H}x{W} + LightGlueMatcher 1 pair in "
+          f"{1e3 * wall:.1f} ms: {va.sum(1).tolist()} keypoints, {n_match} "
+          f"mutual matches; equal to the chunk's extraction {same_f} and "
+          f"matcher {same_m}; launches {launches} (expected {want})",
+          flush=True)
+    check(launches == want, f"entry points: launch counts {launches} != "
+          f"{want}")
+    check(same_f, "SuperPointExtractor differs from build_extract_fn")
+    check(same_m, "LightGlueMatcher differs from the chunk's matcher")
+    check(n_match > 300, f"LightGlueMatcher: {n_match} matches")
+
+    nk = int(slice_map.num_kf)
+    table = slice_map.kf_kp2mp[:nk].cpu().numpy().astype(np.int64)
+    thr = cfg.map.covis_edge_threshold
+    t0 = time.perf_counter()
+    g = native_lib.CovisGraph(edge_threshold=thr)   # g++ at first use
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for kf, ids in enumerate(table):
+        g.add_keyframe(kf, ids)
+    seeds = table[-1][table[-1] >= 0]
+    found = g.query(seeds)
+    pts = g.points_of(np.asarray([nk - 1]), np.zeros(0, np.int64),
+                      max_out=N)
+    graph_ms = 1e3 * (time.perf_counter() - t0)
+    edges, plain = g.num_edges, _covis_edges_plain(table, thr)
+    print(f"  CovisGraph (library ready in {build_ms:.1f} ms) over phase "
+          f"3's {nk} keyframes (edge threshold {thr}), built and queried in "
+          f"{graph_ms:.1f} ms: {edges} edges (plain rule "
+          f"{plain}); query from the last keyframe's {len(seeds)} points -> "
+          f"keyframes {found.tolist()}; its points {len(pts)}", flush=True)
+    check(edges == plain and edges > 0, f"CovisGraph: {edges} edges, the "
+          f"plain rule {plain}")
+    check(nk - 1 in found.tolist() and len(set(found.tolist()))
+          == len(found) and all(0 <= k < nk for k in found.tolist()),
+          f"CovisGraph query: {found.tolist()}")
+    check(sorted(pts.tolist()) == sorted(set(seeds.tolist())),
+          "CovisGraph points_of the last keyframe")
+    details["entry_points"] = dict(
+        launches=launches, expected_launches=want, wall_ms=1e3 * wall,
+        keypoints=va.sum(1).tolist(), matches=n_match,
+        covis=dict(keyframes=nk, edge_threshold=thr, edges=edges,
+                   query=found.tolist(), library_ms=build_ms,
+                   graph_ms=graph_ms))
 
 
 # ---------------------------------------------------------------------------
@@ -2086,7 +2398,7 @@ def main() -> int:
 
         print(f"phase 3: flagship-width chunked tracker with window BA "
               f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
-        slice_poses = run_slice(torch, dev, details, *slice_args)
+        slice_poses, slice_map = run_slice(torch, dev, details, *slice_args)
         print(f"phase 4: the same tracker with BA off, bootstrap + 1 chunk "
               f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
         run_no_ba(torch, dev, details, *slice_args)
@@ -2118,36 +2430,37 @@ def main() -> int:
               f"{TRAIN_STEPS} steps of each trainer, the matcher's gradient "
               f"through the kernel, descent, the save_params round trip "
               f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
-        train_launches = run_training(torch, dev, details, sp)
+        run_training(torch, dev, details, sp)
+        print(f"phase 12: SuperPointExtractor and LightGlueMatcher at "
+              f"flagship width, CovisGraph over phase 3's map "
+              f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
+        run_entry_points(torch, dev, details, cfg, sp, slice_args[2], stack,
+                         slice_map)
         details["wall_s"] = time.perf_counter() - t_start
         print(f"all phases passed [{details['wall_s']:.0f} s]", flush=True)
 
         kernels = []
         S = len(MS_OFFSETS)
-        for name, rows, err, src, replaces, shape, path, launches in (
+        path = "phase 10 (multi-stream, a camera per stream)"
+        for name, rows, err, src, replaces, shape in (
                 ("attention", attn_rows, attn_err,
                  "gl_slam_tpu_torch/csrc/attention.cu",
                  "gl_slam_tpu/ops/attention.py:68",
-                 f"training {TRAIN_PAIRS}x", "phase 11 (training)",
-                 train_launches),
+                 f"streams prologue {S}x"),
                 ("assignment", asg_rows, asg_err,
                  "gl_slam_tpu_torch/csrc/assignment.cu",
                  "gl_slam_tpu/ops/assignment.py:128",
-                 f"streams prologue {S * CHUNK}x",
-                 "phase 10 (multi-stream; not on the training path)",
-                 ms_launches),
+                 f"streams prologue {S * CHUNK}x"),
                 ("nms", nms_rows, nms_err,
                  "gl_slam_tpu_torch/csrc/nms.cu",
                  "gl_slam_tpu/ops/nms.py:86",
-                 f"train detector {CHUNK}x", "phase 11 (training)",
-                 train_launches)):
-            # the shape of this slice's path (phase 11: the matcher's
-            # training batch, the feature staging's detection); the
-            # assignment, which training does not run, at phase 10's
+                 f"detector {CHUNK}x")):
+            # the shapes of this slice's path: the multi-stream prologue of
+            # S streams, and one stream's chunk extraction (groups of 1)
             head = next(r for r in rows if r["shape"].startswith(shape))
             kernels.append(dict(
                 name=name, route="cuda", source=src, replaces=replaces,
-                launches=launches[name], max_abs_err=err, ms=head["ms"],
+                launches=ms_launches[name], max_abs_err=err, ms=head["ms"],
                 plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                 bound_by=head["bound_by"], library_ms=head["library_ms"],
                 path=path, shape=head["shape"]))

@@ -39,10 +39,39 @@ import time
 import numpy as np
 
 
+def _native_frames(seq, args):
+    """frame(i) of a KITTI sequence through the native prefetch loader
+    (runtime/native_lib.py) over frames --first-frame..--last-frame:
+    threads decode ahead of the tracker off its loop, and each frame comes
+    off the loader's ring once. Frames are asked for in increasing order;
+    a frame passed over (the per-frame route's gated frames) is dropped.
+    A frame that does not decode, or one asked for twice, raises."""
+    from .io.kitti import frame_path
+    from .runtime.native_lib import NativeLoader
+    first = args.first_frame
+    paths = [frame_path(seq.seq_dir, i, seq.camera_dir)
+             for i in range(first, args.last_frame + 1)]
+    frames = iter(NativeLoader(paths, args.height, args.width, depth=4,
+                               threads=2))
+
+    def frame(i):
+        for j, img in frames:
+            if first + j == i:
+                return img
+            if first + j > i:
+                break
+        raise RuntimeError(f"native loader: frame {i} did not decode or "
+                           f"was asked for twice")
+
+    return frame
+
+
 def _open_dataset(args):
     """-> (source, K, gt_R, gt_t, frame_fn, gt_motion_small_fn): the
     synthetic scene, an EuRoC directory (a `mav0/` inside) or a KITTI
-    odometry root. Frames are cropped to --height x --width."""
+    odometry root. Frames are cropped to --height x --width. A KITTI
+    sequence is read through the native PNG prefetch loader where it is
+    built (`native_lib.available()`), else with PIL, as in the JAX CLI."""
     H, W = args.height, args.width
     if args.dataset == "synthetic":
         from .io import synthetic
@@ -60,7 +89,11 @@ def _open_dataset(args):
         seq = EurocSequence(args.dataset)
     else:
         from .io.kitti import KittiSequence
+        from .runtime import native_lib
         seq = KittiSequence(args.dataset, args.sequence)
+        if native_lib.available():
+            return (seq, seq.K, seq.gt_R, seq.gt_t,
+                    _native_frames(seq, args), seq.gt_motion_small)
 
     def frame(i):
         return seq.frame(i)[:H, :W]

@@ -211,9 +211,14 @@ def estimate_essential(K, uv0, uv1, mask, u, threshold_px: float = 0.5,
                          f"{tuple(lead + (num_hypotheses, 8))}")
     x0 = projection.normalize_points(K, uv0)
     x1 = projection.normalize_points(K, uv1)
-    f = 0.5 * (K[0, 0] + K[1, 1])
+    f = 0.5 * (K[..., 0, 0] + K[..., 1, 1])
     thr = threshold_px / f
-    thr2 = thr * thr
+    thr2_s = thr * thr
+
+    def thr2(like):
+        """The squared threshold against `like` (one per stream)."""
+        return projection.per_stream(thr2_s, K, like.dim())
+
     maskf = mask.to(dt)
 
     # Hypothesis sampling: inverse CDF over the valid prefix count.
@@ -231,8 +236,8 @@ def estimate_essential(K, uv0, uv1, mask, u, threshold_px: float = 0.5,
     # Scoring: truncated squared Sampson error, padded rows at the cap.
     x0h, x1h = x0[..., None, :, :], x1[..., None, :, :]
     errs = _sampson_error_sq(Es, x0h, x1h)                   # (..., H, N)
-    errs = torch.where(mask[..., None, :], errs, thr2)
-    scores = torch.minimum(errs, thr2).sum(-1)
+    errs = torch.where(mask[..., None, :], errs, thr2(errs))
+    scores = torch.minimum(errs, thr2(errs)).sum(-1)
 
     # Multi-start local optimization from the top-6 hypotheses plus the
     # forward-motion prior (R = I, t = +z).
@@ -241,7 +246,7 @@ def estimate_essential(K, uv0, uv1, mask, u, threshold_px: float = 0.5,
     E_c = torch.gather(Es, -3, top_i[..., None, None].expand(
         *top_i.shape, 3, 3))                                 # (..., S, 3, 3)
     e2b = _sampson_error_sq(E_c, x0h, x1h)
-    w = maskf[..., None, :] * (e2b < thr2).to(dt)            # (..., S, N)
+    w = maskf[..., None, :] * (e2b < thr2(e2b)).to(dt)       # (..., S, N)
     Rs, ts = decompose_essential(E_c)                        # (..., S, 4, ...)
     votes = _cheirality_votes(K, Rs, ts, uv0[..., None, :, :],
                               uv1[..., None, :, :], w)       # (..., S, 4)
@@ -252,20 +257,21 @@ def estimate_essential(K, uv0, uv1, mask, u, threshold_px: float = 0.5,
     t0s = torch.cat([t0s, _basis(2, t0s).expand(*lead, 1, 3)], dim=-2)
 
     R_s, t_s = refine_pose_sampson(x0h, x1h, maskf[..., None, :], R0s, t0s,
-                                   thr2, refine_iters)
+                                   thr2(x0h[..., 0]), refine_iters)
     e2 = _sampson_error_sq(_hat(t_s) @ R_s, x0h, x1h)        # (..., S+1, N)
-    inl_w = maskf[..., None, :] * (e2 < thr2).to(dt)
+    inl_w = maskf[..., None, :] * (e2 < thr2(e2)).to(dt)
     cheir = _cheirality_votes(K, R_s[..., None, :, :], t_s[..., None, :],
                               uv0[..., None, :, :], uv1[..., None, :, :],
                               inl_w)[..., 0]
-    cost = torch.minimum(torch.where(mask[..., None, :], e2, thr2),
-                         thr2).sum(-1) + thr2 * (inl_w.sum(-1) - cheir)
+    cost = torch.minimum(torch.where(mask[..., None, :], e2, thr2(e2)),
+                         thr2(e2)).sum(-1) \
+        + thr2(cheir) * (inl_w.sum(-1) - cheir)
     best = torch.argmin(cost, dim=-1)
     R, t = _take(R_s, best), _take(t_s, best)
     E = _hat(t) @ R
 
     e2 = _sampson_error_sq(E, x0, x1)
-    inliers = mask & (e2 < thr2)
+    inliers = mask & (e2 < thr2(e2))
     num_inliers = inliers.to(torch.int32).sum(-1, dtype=torch.int32)
     votes2 = _cheirality_votes(K, torch.stack([R, R], dim=-3),
                                torch.stack([t, -t], dim=-2), uv0, uv1,
@@ -274,3 +280,17 @@ def estimate_essential(K, uv0, uv1, mask, u, threshold_px: float = 0.5,
     return EssentialResult(R=R, t=t, E=E, inliers=inliers,
                            num_inliers=num_inliers,
                            ok=num_inliers >= min_inliers)
+
+
+def mask_filter(uv0, uv1, pair_mask, inliers):
+    """Keep only the RANSAC-inlier correspondences. Fixed shape: the
+    combined boolean mask instead of a compacted set."""
+    return pair_mask & inliers
+
+
+def adjust_translation_magnitude(t: torch.Tensor, gt_t_prev: torch.Tensor,
+                                 gt_t_cur: torch.Tensor) -> torch.Tensor:
+    """Monocular scale from the ground truth: t rescaled to the norm of
+    the ground-truth translation step."""
+    scale = torch.linalg.vector_norm(gt_t_cur - gt_t_prev)
+    return t * scale / torch.clamp_min(torch.linalg.vector_norm(t), 1e-12)

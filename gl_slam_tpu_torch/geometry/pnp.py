@@ -153,9 +153,14 @@ def solve_pnp_ransac(K: torch.Tensor, pts_w: torch.Tensor, uv: torch.Tensor,
     f32 = torch.float32
     pts_w = pts_w.to(f32)
     x = projection.normalize_points(K, uv.to(f32))
-    f = 0.5 * (K[0, 0] + K[1, 1])
+    f = 0.5 * (K[..., 0, 0] + K[..., 1, 1])
     thr = threshold_px / f
-    thr2 = thr * thr
+    thr2_s = thr * thr
+
+    def thr2(like):
+        """The squared threshold against `like` (one per stream)."""
+        return projection.per_stream(thr2_s, K, like.dim())
+
     maskf = mask.to(f32)
     if gumbel.shape[-2] != num_hypotheses:
         raise ValueError(f"gumbel draws {tuple(gumbel.shape)} do not hold "
@@ -178,9 +183,9 @@ def solve_pnp_ransac(K: torch.Tensor, pts_w: torch.Tensor, uv: torch.Tensor,
         z = pc[..., 2]
         pred = pc[..., :2] / torch.clamp_min(z, 1e-6)[..., None]
         e2 = ((pred - x[..., None, :, :]) ** 2).sum(-1)
-        e2 = torch.where(z > 1e-6, e2, thr2)
-        e2 = torch.where(mask[..., None, :], e2, thr2)
-        return torch.minimum(e2, thr2).sum(-1), e2
+        e2 = torch.where(z > 1e-6, e2, thr2(e2))
+        e2 = torch.where(mask[..., None, :], e2, thr2(e2))
+        return torch.minimum(e2, thr2(e2)).sum(-1), e2
 
     costs, _ = score(Rs, ts)
     best = torch.argmin(costs, dim=-1)                    # first minimum
@@ -191,12 +196,12 @@ def solve_pnp_ransac(K: torch.Tensor, pts_w: torch.Tensor, uv: torch.Tensor,
     # iterative refit: GN polish on the inlier set, recompute the inliers
     for _ in range(polish_iters):
         _, e2 = score(R[..., None, :, :], t[..., None, :])
-        w = maskf * (e2[..., 0, :] < thr2).to(f32)
+        w = maskf * (e2[..., 0, :] < thr2(maskf)).to(f32)
         w = torch.where(w.sum(-1, keepdim=True) >= 6, w, maskf)
         R, t = _gn_polish(pts_w, x, w, R, t, iters=2)
 
     _, e2 = score(R[..., None, :, :], t[..., None, :])
-    inliers = mask & (e2[..., 0, :] < thr2)
+    inliers = mask & (e2[..., 0, :] < thr2(maskf))
     num_inliers = inliers.to(torch.int32).sum(-1, dtype=torch.int32)
     return PnPResult(R=R, t=t, inliers=inliers, num_inliers=num_inliers,
                      ok=num_inliers >= min_inliers)

@@ -3,11 +3,36 @@
 Counterpart of gl_slam_tpu/geometry/projection.py. Runs in full float32:
 the port switches TF32 off for the whole process when an entry point selects
 the card (ops/precision.py), so `pts @ R.T` never loses digits.
+
+Every function that reads K takes a K (3, 3) shared by all streams, or
+K (S, 3, 3) with one row per stream of a stream-batched state, whose
+stream axis leads every tensor (`per_stream` lines a per-stream value up
+with it).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def per_stream(v: torch.Tensor, K: torch.Tensor, rank: int) -> torch.Tensor:
+    """A value derived from K, one per stream (S, *rest) when K is
+    (S, 3, 3), shaped (S, 1, ..., 1, *rest) with `rank` dimensions in all,
+    so that it broadcasts against a tensor of that rank whose leading axis
+    is the stream axis: per-point rows (S, N), stacked pose hypotheses
+    (S, h, N), K itself against (S, ..., 3, n) for a product. Under a K
+    (3, 3) shared by all streams `v` is returned as it is."""
+    if K.dim() == 2:
+        return v
+    s = K.dim() - 2
+    return v.reshape(v.shape[:s] + (1,) * (rank - v.dim()) + v.shape[s:])
+
+
+def intrinsics(K: torch.Tensor, like: torch.Tensor):
+    """(fx, fy, cx, cy) of K, each broadcasting against `like` (0-d
+    tensors under a shared K)."""
+    return tuple(per_stream(v, K, like.dim()) for v in (
+        K[..., 0, 0], K[..., 1, 1], K[..., 0, 2], K[..., 1, 2]))
 
 
 def project(K: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
@@ -20,7 +45,8 @@ def project(K: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
     zs = torch.where(in_front, z, 1.0)
     x = pc[..., 0] / zs
     y = pc[..., 1] / zs
-    uv = torch.stack([K[0, 0] * x + K[0, 2], K[1, 1] * y + K[1, 2]], dim=-1)
+    fx, fy, cx, cy = intrinsics(K, x)
+    uv = torch.stack([fx * x + cx, fy * y + cy], dim=-1)
     return uv, z, in_front
 
 
@@ -39,8 +65,9 @@ def in_image(uv: torch.Tensor, height: int, width: int,
 
 def normalize_points(K: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """Pixel coords (..., 2) -> normalized camera coords using K^{-1}."""
-    x = (uv[..., 0] - K[0, 2]) / K[0, 0]
-    y = (uv[..., 1] - K[1, 2]) / K[1, 1]
+    fx, fy, cx, cy = intrinsics(K, uv[..., 0])
+    x = (uv[..., 0] - cx) / fx
+    y = (uv[..., 1] - cy) / fy
     return torch.stack([x, y], dim=-1)
 
 

@@ -143,3 +143,30 @@ def rotation_angle_deg(R: torch.Tensor) -> torch.Tensor:
     tr = torch.diagonal(R, dim1=-2, dim2=-1).sum(-1)
     return torch.rad2deg(torch.arccos(torch.clamp((tr - 1.0) * 0.5,
                                                   -1.0, 1.0)))
+
+
+# Every function here takes leading batch axes, so the JAX package's vmapped
+# variants are the functions themselves.
+exp_so3_batched = exp_so3
+log_so3_batched = log_so3
+
+
+def pose_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R, t) -> the 4 x 4 homogeneous matrix."""
+    T = torch.eye(4, dtype=R.dtype, device=R.device)
+    T[:3, :3] = R
+    T[:3, 3] = t
+    return T
+
+
+def from_pose_matrix(T: torch.Tensor):
+    return T[:3, :3], T[:3, 3]
+
+
+def translation_direction_angle_deg(t1: torch.Tensor,
+                                    t2: torch.Tensor) -> torch.Tensor:
+    """Angle between two translation directions, degrees."""
+    n1 = t1 / (torch.linalg.vector_norm(t1) + _EPS)
+    n2 = t2 / (torch.linalg.vector_norm(t2) + _EPS)
+    return torch.rad2deg(torch.arccos(torch.clamp(torch.dot(n1, n2),
+                                                  -1.0, 1.0)))

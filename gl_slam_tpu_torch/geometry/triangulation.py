@@ -29,8 +29,10 @@ def _ray_depth_batched(K, R0, t0, R1, t1, uv0, uv1, newton_iters: int = 2):
     ray0 = torch.cat([x0, torch.ones_like(x0[..., :1])], dim=-1)  # (...,N,3)
     R_rel = R1 @ R0.transpose(-1, -2)
     t_rel = t1 - se3.mv(R_rel, t0)
-    h_c = se3.mv(K, t_rel)                                        # (...,3)
-    h_d = K @ (R_rel @ ray0.transpose(-1, -2))                    # (...,3,N)
+    h_c = se3.mv(projection.per_stream(K, K, t_rel.dim() + 1),
+                 t_rel)                                           # (...,3)
+    rays = R_rel @ ray0.transpose(-1, -2)
+    h_d = projection.per_stream(K, K, rays.dim()) @ rays          # (...,3,N)
     hc0, hc1, hc2 = (h_c[..., i, None] for i in range(3))
     r0 = torch.stack([uv1[..., 0] * hc2 - hc0,
                       uv1[..., 1] * hc2 - hc1], dim=-1)

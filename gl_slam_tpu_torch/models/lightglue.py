@@ -22,7 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import resolve_device, upload
 from ..ops import attention as attn_ops
+from . import init_like_flax
 
 _NEG = -1e9
 
@@ -218,3 +220,49 @@ def normalize_keypoints(kpts: torch.Tensor, height: int,
     scale = max(width, height) / 2.0
     return torch.stack([(kpts[..., 0] - width / 2.0) / scale,
                         (kpts[..., 1] - height / 2.0) / scale], dim=-1)
+
+
+class LightGlueMatcher:
+    """Batched matcher: keypoints and descriptors of pairs of sets ->
+    mutual matches above `threshold`, with -1 sentinels. The network's
+    final projections go straight into the fused assignment (on the card
+    the hand-written kernel, with attention's kernel in every layer), so
+    no (N, M) score matrix is formed and `scores` is None.
+
+    `net`: a LightGlueNet (for example the committed weights of
+    e2e.load_flagship_frontend()[1]); None builds one of the given shape
+    initialised as Flax initialises it, from `seed`. `device`: the card by
+    default (raises without CUDA), or "cpu"."""
+
+    def __init__(self, height: int, width: int, input_dim: int = 256,
+                 dim: int = 256, heads: int = 4, layers: int = 9,
+                 threshold: float = 0.1, seed: int = 0,
+                 net: Optional[LightGlueNet] = None, device=None):
+        self.height, self.width = height, width
+        self.threshold = threshold
+        self.device = resolve_device(device)
+        if net is None:
+            net = init_like_flax(LightGlueNet(dim=dim, heads=heads,
+                                              layers=layers,
+                                              input_dim=input_dim),
+                                 torch.Generator().manual_seed(seed))
+        self.net = net.to(self.device).eval()
+
+    @torch.no_grad()
+    def __call__(self, kpts0, desc0, valid0, kpts1, desc1,
+                 valid1) -> MatchOutput:
+        """All arguments batched (B, N, ...) in pixels -> MatchOutput of
+        (B, N) / (B, M) matches and scores."""
+        # ops.assignment imports MatchOutput from this module
+        from ..ops.assignment import fused_assignment
+        dev = self.device
+        k0, d0, k1, d1 = (upload(x, torch.float32, dev)
+                          for x in (kpts0, desc0, kpts1, desc1))
+        m0, m1 = (upload(x, torch.bool, dev) for x in (valid0, valid1))
+        f0, f1, z0, z1 = self.net(
+            d0, d1, normalize_keypoints(k0, self.height, self.width),
+            normalize_keypoints(k1, self.height, self.width), m0, m1,
+            return_features=True)
+        return fused_assignment(f0, f1, z0, z1, m0, m1,
+                                1.0 / float(self.net.dim) ** 0.5,
+                                self.threshold)

@@ -1,7 +1,8 @@
 """Sub-pixel keypoint refinement: the centroid and the two learned heads.
 
-Counterpart of `gather_patches`, `centroid_refine`, `SubpixHead`,
-`PairSubpixHead` and `pair_refine_scatter` in gl_slam_tpu/models/subpix.py.
+Counterpart of gl_slam_tpu/models/subpix.py: `gather_patches`,
+`centroid_refine` (and their naive forms), `SubpixHead`, `PairSubpixHead`,
+`SubpixRefiner` and `pair_refine_scatter`.
 The JAX package computes the centroid densely with shift-adds at large
 images and gathers patches through an x-packed copy of the image (TPU
 gather workarounds); this port gathers the (P, P) windows directly, which
@@ -14,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import resolve_device, upload
+from . import init_like_flax
 from .lightglue import Dense
 
 
@@ -41,6 +44,32 @@ def gather_patches(img: torch.Tensor, kpts: torch.Tensor,
     lead = idx.shape[:-3]
     out = torch.gather(flat, -1, idx.reshape(*lead, -1))
     return out.reshape(idx.shape)
+
+
+def gather_patches_naive(img: torch.Tensor, kpts: torch.Tensor,
+                         patch: int) -> torch.Tensor:
+    """The direct element gather of the JAX package's tests: img (H, W),
+    kpts (N, 2) -> (N, P, P), each index clamped into the image on its
+    own (`gather_patches` at 16384 pixels or fewer)."""
+    H, W = img.shape
+    r = patch // 2
+    off = torch.arange(patch, device=img.device) - r
+    xs = torch.clamp(kpts[:, 0:1].to(torch.int32) + off, 0, W - 1)
+    ys = torch.clamp(kpts[:, 1:2].to(torch.int32) + off, 0, H - 1)
+    return img[ys[:, :, None].long(), xs[:, None, :].long()]
+
+
+def centroid_refine_naive(heat: torch.Tensor, kpts: torch.Tensor,
+                          patch: int = 5) -> torch.Tensor:
+    """`centroid_refine` of one (H, W) map through the naive gather."""
+    r = patch // 2
+    patches = gather_patches_naive(heat, kpts, patch)
+    off = torch.arange(patch, dtype=torch.float32, device=heat.device) - r
+    w = torch.clamp_min(patches, 0.0)
+    tot = torch.clamp_min(w.sum(dim=(1, 2)), 1e-9)
+    dx = (w * off[None, None, :]).sum(dim=(1, 2)) / tot
+    dy = (w * off[None, :, None]).sum(dim=(1, 2)) / tot
+    return kpts + torch.stack([dx, dy], dim=-1)
 
 
 def centroid_refine(heat: torch.Tensor, kpts: torch.Tensor,
@@ -121,6 +150,34 @@ class PairSubpixHead(nn.Module):
         return _offsets(self, torch.cat(
             [patches0.reshape(*lead, -1), patches1.reshape(*lead, -1),
              desc0, desc1, mscore[..., None]], dim=-1))
+
+
+class SubpixRefiner:
+    """The single-view head with the reference refiner's surface: a score
+    heatmap, keypoints and their descriptors -> refined keypoints.
+
+    `head`: a SubpixHead (for example e2e.load_flagship_subpix(pair=False));
+    None builds one of `desc_dim` initialised as Flax initialises it, from
+    `seed`. `device`: the card by default (raises without CUDA), or
+    "cpu"."""
+
+    def __init__(self, patch: int = 5, desc_dim: int = 256, seed: int = 0,
+                 head: "SubpixHead | None" = None, device=None):
+        self.device = resolve_device(device)
+        if head is None:
+            head = init_like_flax(SubpixHead(desc_dim, patch=patch),
+                                  torch.Generator().manual_seed(seed))
+        self.patch = head.patch
+        self.head = head.to(self.device).eval()
+
+    @torch.no_grad()
+    def __call__(self, heat, kpts, desc) -> torch.Tensor:
+        """heat (H, W) detector heatmap; kpts (N, 2); desc (N, D) ->
+        refined (N, 2) float32 keypoints."""
+        heat, kpts, desc = (upload(x, torch.float32, self.device)
+                            for x in (heat, kpts, desc))
+        patches = gather_patches(heat, kpts, self.patch)
+        return kpts + self.head(patches, desc)
 
 
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

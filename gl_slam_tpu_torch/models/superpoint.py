@@ -24,6 +24,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import resolve_device, upload
+from ..ops.nms import detect_keypoints
+from . import init_like_flax
+
 
 class Conv(nn.Conv2d):
     """`flax.linen.Conv` with `dtype` (SAME padding, stride 1)."""
@@ -120,3 +124,55 @@ def sample_descriptors(desc_grid: torch.Tensor, kpts: torch.Tensor,
     d = (d00 * (1 - fx) * (1 - fy) + d01 * fx * (1 - fy)
          + d10 * (1 - fx) * fy + d11 * fx * fy)
     return d * torch.rsqrt((d * d).sum(-1, keepdim=True) + 1e-12)
+
+
+def padded_heatmap(net: SuperPointNet, images: torch.Tensor, height: int,
+                   width: int):
+    """images (B, H, W) in [0, 1] -> (heat (B, H8, W8) float32 on the
+    image padded up to multiples of 8, the padding zeroed, descriptor
+    grid), so that no detection lands outside the true image."""
+    x = F.pad(images, (0, (-width) % 8, 0, (-height) % 8))[..., None]
+    heat, grid = net(x)
+    dev = heat.device
+    row_ok = torch.arange(heat.shape[1], device=dev) < height
+    col_ok = torch.arange(heat.shape[2], device=dev) < width
+    return heat * row_ok[None, :, None] * col_ok[None, None, :], grid
+
+
+class SuperPointExtractor:
+    """Batched extractor with the fixed-K output contract: images ->
+    (keypoints, scores, descriptors, valid) with at most `max_keypoints`
+    detections above `score_threshold` after NMS at `nms_radius` (on the
+    card the hand-written NMS kernel), descriptors sampled at the integer
+    keypoints.
+
+    `net`: a SuperPointNet (for example the committed weights of
+    e2e.load_flagship_frontend()[0]); None builds one of `descriptor_dim`
+    initialised as Flax initialises it, from `seed`. `device`: the card by
+    default (raises without CUDA), or "cpu"."""
+
+    def __init__(self, height: int, width: int, max_keypoints: int = 2048,
+                 score_threshold: float = 0.1, nms_radius: int = 4,
+                 descriptor_dim: int = 256, seed: int = 0,
+                 net: "SuperPointNet | None" = None, device=None):
+        self.height, self.width = height, width
+        self.max_keypoints = max_keypoints
+        self.score_threshold = score_threshold
+        self.nms_radius = nms_radius
+        self.device = resolve_device(device)
+        if net is None:
+            net = init_like_flax(SuperPointNet(descriptor_dim=descriptor_dim),
+                                 torch.Generator().manual_seed(seed))
+        self.net = net.to(self.device).eval()
+
+    @torch.no_grad()
+    def __call__(self, images):
+        """images (B, H, W) in [0, 1] -> (kpts (B, K, 2) float32, scores
+        (B, K), desc (B, K, D), valid (B, K))."""
+        images = upload(images, torch.float32, self.device)
+        heat, grid = padded_heatmap(self.net, images, self.height,
+                                    self.width)
+        kpts, scores, valid = detect_keypoints(
+            heat, self.max_keypoints, self.score_threshold, self.nms_radius)
+        kpts = kpts.float()
+        return kpts, scores, sample_descriptors(grid, kpts), valid

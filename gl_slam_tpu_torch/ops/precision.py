@@ -13,6 +13,8 @@ own dtype (bf16 on the card), which TF32 does not touch.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -21,3 +23,26 @@ def set_full_f32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def f32(fn):
+    """Decorator: run `fn` with TF32 off for matmuls and convolutions (the
+    counterpart of the JAX decorator that traces under full-float32 matmul
+    precision), restoring the previous settings after. The port's entry
+    points switch TF32 off for the whole process when they select the card,
+    so this is for code that runs outside them. Sets `__f32_precision__`
+    on the wrapper, as the JAX decorator does."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32,
+                 torch.get_float32_matmul_precision())
+        set_full_f32()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved[0]
+            torch.backends.cudnn.allow_tf32 = saved[1]
+            torch.set_float32_matmul_precision(saved[2])
+    wrapped.__f32_precision__ = True
+    return wrapped

@@ -207,3 +207,73 @@ def svd3(E: torch.Tensor):
     u2 = u2 * sgn
     U = torch.stack([u0, u1, u2], dim=-1)
     return U, s, V.transpose(-1, -2)
+
+
+def block_jacobi_pcg(S: torch.Tensor, b: torch.Tensor,
+                     iters: int) -> torch.Tensor:
+    """Preconditioned conjugate gradients on a block-structured SPD system
+    S (C, C, 6, 6), b (C, 6), for a fixed number of iterations. The
+    preconditioner is the exact inverse of the (6, 6) diagonal blocks
+    (through the unrolled Cholesky against the identity), which removes
+    the rotation-against-translation scale mix that stalls plain float32
+    CG on a Schur-reduced camera system."""
+    C = S.shape[0]
+    ar = torch.arange(C, device=S.device)
+    diag = S[ar, ar]                                        # (C, 6, 6)
+    eye = torch.eye(6, dtype=S.dtype, device=S.device)
+    # column e of each inverse, then (C, 6, 6) with rows as in JAX
+    Minv = cholesky_solve(diag[:, None].expand(C, 6, 6, 6),
+                          eye.expand(C, 6, 6)).transpose(-1, -2)
+
+    def mv(x):
+        return torch.einsum('cdij,dj->ci', S, x)
+
+    def pre(r):
+        return torch.einsum('cij,cj->ci', Minv, r)
+
+    x = torch.zeros_like(b)
+    r = b
+    z = pre(r)
+    p = z
+    rz = (r * z).sum()
+    for _ in range(iters):
+        Ap = mv(p)
+        denom = (p * Ap).sum()
+        alpha = rz / torch.where(denom.abs() < _EPS, _EPS, denom)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = pre(r)
+        rz_new = (r * z).sum()
+        beta = rz_new / torch.where(rz.abs() < _EPS, _EPS, rz)
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
+def cg_solve(A: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
+    """Conjugate gradients with a Jacobi preconditioner for PSD A
+    (..., n, n), b (..., n), for a fixed number of iterations (exact for
+    iters >= n in exact arithmetic)."""
+    diag = torch.diagonal(A, dim1=-2, dim2=-1)
+    Minv = 1.0 / torch.clamp_min(diag.abs(), _EPS)
+
+    def mv(x):
+        return torch.einsum('...ij,...j->...i', A, x)
+
+    x = torch.zeros_like(b)
+    r = b
+    z = Minv * r
+    p = z
+    rz = (r * z).sum(-1)
+    for _ in range(iters):
+        Ap = mv(p)
+        denom = (p * Ap).sum(-1)
+        alpha = rz / torch.where(denom.abs() < _EPS, _EPS, denom)
+        x = x + alpha[..., None] * p
+        r = r - alpha[..., None] * Ap
+        z = Minv * r
+        rz_new = (r * z).sum(-1)
+        beta = rz_new / torch.where(rz.abs() < _EPS, _EPS, rz)
+        p = z + beta[..., None] * p
+        rz = rz_new
+    return x

@@ -53,6 +53,21 @@ def stream_parts(num_streams: int, devices: Optional[Sequence] = None):
     return list(zip(devs, _bounds(num_streams, len(devs))))
 
 
+def stream_sharding(devices: Sequence):
+    """The placement that splits the leading (stream) axis of every tensor
+    of a tree evenly over `devices` (JAX: `NamedSharding(mesh, P("data"))`):
+    a function tree -> list of per-device parts, as `shard_streams`."""
+    return lambda tree: shard_streams(tree, devices)
+
+
+def replicated(devices: Sequence):
+    """The placement that puts a whole copy of a tree on each of `devices`
+    (JAX: `NamedSharding(mesh, P())`): a function tree -> list of copies,
+    one per device."""
+    return lambda tree: [tree_map(lambda x, d=d: x.to(d), tree)
+                         for d in (torch.device(d) for d in devices)]
+
+
 def shard_streams(tree, devices: Sequence):
     """Split the leading (stream) axis of every tensor of `tree` evenly
     over `devices` -> the list of parts, part p moved to devices[p]. None

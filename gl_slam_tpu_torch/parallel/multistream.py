@@ -43,9 +43,8 @@ class MultiStreamTracker:
         ms.block()
 
     Features are stream-batched: kpts (S, N, 2), desc (S, N, D), valid
-    (S, N). K is (3, 3) shared by all streams, or (S, 3, 3) with equal
-    rows: distinct intrinsics per stream on the stream axis are not ported
-    (ROADMAP.md)."""
+    (S, N). K is (3, 3) shared by all streams, or (S, 3, 3), one camera
+    per stream, split over the parts with the stream axis."""
 
     def __init__(self, cfg: SLAMConfig, K, num_streams: int,
                  devices: Optional[Sequence] = None, seed: int = 0,
@@ -58,14 +57,12 @@ class MultiStreamTracker:
             else self.devices[0]
         self.device = home
         K = torch.as_tensor(np.asarray(K), dtype=torch.float32)
-        if K.dim() == 3:
-            if not bool((K == K[:1]).all()):
-                raise NotImplementedError(
-                    "distinct intrinsics per stream on the stream axis are "
-                    "not ported; see ROADMAP.md")
-            K = K[0]
+        if K.dim() == 3 and K.shape[0] != num_streams:
+            raise ValueError(f"K of shape {tuple(K.shape)} for "
+                             f"{num_streams} streams")
         self._parts = mesh_lib.stream_parts(num_streams, self.devices)
-        self._K = [K.to(d or home) for d, _ in self._parts]
+        self._K = [(K if K.dim() == 2 else K[sl]).to(d or home)
+                   for d, sl in self._parts]
         self.states = [frontend.init_track_state(
             cfg, device=d or home, num_streams=sl.stop - sl.start)
             for d, sl in self._parts]

@@ -166,15 +166,15 @@ def _residual_jacobians(K, R_all, t_all, X_all, prob: WindowProblem):
     (leading stream axes allowed in front of every array).
 
     Returns r (M,2), Jc (M,2,6), Jp (M,2,3), behind (M,)."""
-    fx, fy = K[0, 0], K[1, 1]
     cam = prob.obs_cam.long()
     Ro = R_all[..., cam, :, :]                   # (M,3,3)
     Xo = _gather(X_all, prob.obs_pt, X_all.dim() - 2)
     pc = (Ro @ Xo[..., None])[..., 0] + t_all[..., cam, :]
+    fx, fy, cx, cy = projection.intrinsics(K, pc[..., 0])
     z = torch.clamp_min(pc[..., 2], 1e-6)
     inv_z = 1.0 / z
-    u = fx * pc[..., 0] * inv_z + K[0, 2]
-    v = fy * pc[..., 1] * inv_z + K[1, 2]
+    u = fx * pc[..., 0] * inv_z + cx
+    v = fy * pc[..., 1] * inv_z + cy
     r = torch.stack([u, v], dim=-1) - prob.obs_uv
     zero = torch.zeros_like(z)
     J_pc = torch.stack([

@@ -32,9 +32,10 @@ loop whose every step covers the S streams.
 
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..config import SLAMConfig
@@ -42,7 +43,7 @@ from ..geometry import essential as essential_mod
 from ..models.lightglue import normalize_keypoints
 from ..models.subpix import (PairSubpixHead, SubpixHead, centroid_refine,
                              gather_patches, pair_refine_scatter)
-from ..models.superpoint import sample_descriptors
+from ..models.superpoint import padded_heatmap, sample_descriptors
 from ..ops import assignment as assignment_ops
 from ..ops import match as match_ops
 from ..ops import nms as nms_ops
@@ -51,16 +52,20 @@ from . import frontend
 from .state import _where
 
 
+class FusedParams(NamedTuple):
+    """The networks of the chunked pipeline. The JAX package keeps each
+    network's parameter tree here and the modules apart; a PyTorch module
+    carries its weights, so this holds the modules themselves."""
+    sp: Any          # SuperPointNet
+    lg: Any          # LightGlueNet
+    ks: Any = None   # SubpixHead or PairSubpixHead (None = centroid)
+
+
 def detector_heatmap(cfg: SLAMConfig, sp_net, images):
     """images (B, H, W) in [0, 1] -> (heat (B, H8, W8) float32 with the
     padding up to multiples of 8 zeroed, descriptor grid)."""
-    H, W = cfg.frontend.image_height, cfg.frontend.image_width
-    x = F.pad(images, (0, (-W) % 8, 0, (-H) % 8))[..., None]
-    heat, grid = sp_net(x)
-    dev = heat.device
-    row_ok = torch.arange(heat.shape[1], device=dev) < H
-    col_ok = torch.arange(heat.shape[2], device=dev) < W
-    return heat * row_ok[None, :, None] * col_ok[None, None, :], grid
+    return padded_heatmap(sp_net, images, cfg.frontend.image_height,
+                          cfg.frontend.image_width)
 
 
 def _pair_mode(subpix_head) -> bool:
@@ -407,33 +412,28 @@ def build_multistream_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K,
     per-part outputs, list of per-part recovery flags). With one device
     (one H100) the split is the identity.
 
-    K: (3, 3) shared by all streams, or (S, 3, 3) with equal rows (checked
-    here, once). Distinct intrinsics per stream on the stream axis are not
-    ported and raise (ROADMAP.md). `kw` goes to build_chunk_fn
-    (subpix_head, prologue, prologue_recovery, match_with_lightglue,
-    reobs_with_lightglue)."""
+    K: (3, 3) shared by all streams, or (S, 3, 3), one camera per stream
+    (KITTI's sequences come with three calibrations), carried on the
+    stream axis into the chunk function and, under `devices`, split with
+    it. `kw` goes to build_chunk_fn (subpix_head, prologue,
+    prologue_recovery, match_with_lightglue, reobs_with_lightglue)."""
     K = torch.as_tensor(K, dtype=torch.float32)
-    if K.dim() == 3:
-        if K.shape[0] != num_streams:
-            raise ValueError(f"K of shape {tuple(K.shape)} for "
-                             f"{num_streams} streams")
-        if not bool((K == K[:1]).all()):
-            raise NotImplementedError(
-                "distinct intrinsics per stream on the stream axis are not "
-                "ported; see ROADMAP.md")
-        K = K[0]
+    if K.dim() == 3 and K.shape[0] != num_streams:
+        raise ValueError(f"K of shape {tuple(K.shape)} for {num_streams} "
+                         f"streams")
     parts = mesh_lib.stream_parts(num_streams, devices)
     subpix_head = kw.pop("subpix_head", None)
     pair_mode = _pair_mode(subpix_head)
     built = []
-    for dev, _ in parts:
+    for dev, sl in parts:
         sp_d, lg_d, head_d = (mesh_lib.module_on(x, dev)
                               for x in (sp_net, lg_net, subpix_head))
         k_dev = dev if dev is not None \
             else next(sp_net.parameters()).device
+        K_d = K if K.dim() == 2 else K[sl]
         built.append((
             build_extract_fn(cfg, sp_d, subpix_head=head_d),
-            build_chunk_fn(cfg, sp_d, lg_d, K.to(k_dev), chunk,
+            build_chunk_fn(cfg, sp_d, lg_d, K_d.to(k_dev), chunk,
                            subpix_head=head_d, **kw)))
 
     def extract_streams(extract_batch, images):

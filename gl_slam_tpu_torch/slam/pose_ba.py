@@ -29,12 +29,12 @@ class PoseBAResult(NamedTuple):
 def _residuals_jacobian(K, R, t, pts, uv):
     """Residuals (..., N, 2), Jacobian wrt a left se(3) increment
     (..., N, 2, 6) and the behind-camera mask, for poses (..., 3, 3)."""
-    fx, fy = K[0, 0], K[1, 1]
     pc = pts @ R.transpose(-1, -2) + t[..., None, :]
+    fx, fy, cx, cy = projection.intrinsics(K, pc[..., 0])
     z = torch.clamp_min(pc[..., 2], 1e-6)
     inv_z = 1.0 / z
-    u = fx * pc[..., 0] * inv_z + K[0, 2]
-    v = fy * pc[..., 1] * inv_z + K[1, 2]
+    u = fx * pc[..., 0] * inv_z + cx
+    v = fy * pc[..., 1] * inv_z + cy
     r = torch.stack([u, v], dim=-1) - uv
     zero = torch.zeros_like(z)
     J_pc = torch.stack([

@@ -38,6 +38,11 @@ class ReobserveResult(NamedTuple):
     num_candidates: torch.Tensor
 
 
+# The covisibility pass's result under the JAX package's name (every pass
+# here returns the same two fields).
+CovisResult = ReobserveResult
+
+
 def _col(x: torch.Tensor) -> torch.Tensor:
     """A per-stream scalar (or a 0-d one) against a (..., n) row."""
     return x[..., None]

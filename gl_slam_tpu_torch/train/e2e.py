@@ -17,8 +17,10 @@ import numpy as np
 import torch
 
 from .. import checkpoint as ckpt
+# flagship_config and micro_config are reachable from here, as in JAX
 from ..config import (FLAGSHIP_DESC_DIM, FLAGSHIP_LG, FLAGSHIP_SP_CHANNELS,
-                      TINY_DESC_DIM, TINY_LG, TINY_SP_CHANNELS, SLAMConfig)
+                      TINY_DESC_DIM, TINY_LG, TINY_SP_CHANNELS, SLAMConfig,
+                      flagship_config, micro_config)  # noqa: F401
 from ..device import resolve_device
 from ..io import synthetic
 from ..models.lightglue import LightGlueNet

@@ -33,6 +33,8 @@ from gl_slam_tpu_torch.ops import smallmat as t_smallmat
 from gl_slam_tpu_torch.slam import ba as t_ba
 from gl_slam_tpu_torch.slam import state as t_state
 
+import jax_weights
+
 from test_tracking import make_cfg, run_pipeline
 
 # Small shapes: one ATen thread per test worker keeps the parallel suite
@@ -371,7 +373,6 @@ def test_pipeline_ba_pass_matches_jax_on_a_carried_track_state():
     bootstrap_from_state."""
     from gl_slam_tpu.slam import fused as j_fused
     from gl_slam_tpu.slam.chunk_driver import ChunkedPipeline as JPipeline
-    from gl_slam_tpu.train import e2e as j_e2e
     from gl_slam_tpu_torch.slam import frontend as t_frontend
     from gl_slam_tpu_torch.slam.chunk_driver import ChunkedPipeline
     from gl_slam_tpu_torch.train import e2e as t_e2e
@@ -382,7 +383,7 @@ def test_pipeline_ba_pass_matches_jax_on_a_carried_track_state():
     cfg = make_cfg()
     jstate = run_pipeline(scene, cfg, NKF, noise_px=0.4,
                           enable_ba=False).state
-    sp, spp, lg, lgp = j_e2e.load_tiny_frontend(ckpt)
+    sp, spp, lg, lgp = jax_weights.load_tiny_frontend(ckpt)
     jp = JPipeline(cfg, jnp.asarray(scene.K, jnp.float32), sp, lg,
                    j_fused.FusedParams(sp=spp, lg=lgp), chunk=4, ba_every=4)
     ref = jp._ba_fn(jstate)

@@ -47,6 +47,7 @@ from gl_slam_tpu_torch.train import e2e as t_e2e
 
 import test_torch_slice as ts_mod
 from test_torch_motion_gate import KEEP_THIRD
+import jax_weights
 
 # Small shapes: one ATen thread per test worker keeps the parallel suite
 # from oversubscribing the cores.
@@ -88,7 +89,7 @@ def setup():
                                  desc_dim=j_e2e.TINY_DESC_DIM, seed=99)
     foreign = stack[2:2 + T].copy()
     foreign[FOREIGN] = t_e2e.render_stack(other, 4, ts_mod.N)[3]
-    sp, spp, lg, lgp = j_e2e.load_tiny_frontend(ts_mod.CKPT)
+    sp, spp, lg, lgp = jax_weights.load_tiny_frontend(ts_mod.CKPT)
     sp, lg = sp.clone(dtype=jnp.float32), lg.clone(dtype=jnp.float32)
     tsp, tlg = t_e2e.load_tiny_frontend(ts_mod.CKPT, device="cpu",
                                         dtype=torch.float32)

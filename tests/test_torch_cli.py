@@ -185,10 +185,14 @@ def _jax_draws(hypotheses):
 @pytest.fixture(scope="module")
 def per_frame_run(kitti_dir, harris_dir, tmp_path_factory):
     """run(route) -> (port report, port out dir, JAX report): one run of
-    each CLI per route, the port's on the CPU with the JAX draws, the
-    JAX CLI with its PIL frame loader (not the native one)."""
+    each CLI per route, the port's on the CPU with the JAX draws, both
+    CLIs with their PIL frame loader (not the native one), so that both
+    read the same pixels; the JAX CLI loads its learned weights through
+    jax_weights.py (the same arrays, no eager init)."""
     from gl_slam_tpu import cli as j_cli
     from gl_slam_tpu.runtime import native_lib
+    from gl_slam_tpu_torch.runtime import native_lib as t_native_lib
+    import jax_weights
     from gl_slam_tpu_torch.slam import pipeline as t_pipeline
     runs = {}
 
@@ -211,6 +215,10 @@ def per_frame_run(kitti_dir, harris_dir, tmp_path_factory):
                     contextlib.redirect_stdout(stdout):
                 mp.setattr(t_pipeline, "TrackingPipeline", SharedDraws)
                 mp.setattr(native_lib, "available", lambda: False)
+                mp.setattr(t_native_lib, "available", lambda: False)
+                # the same weights without the eager Flax init
+                mp.setattr(j_cli, "_load_learned_frontend",
+                           jax_weights.cli_learned_frontend)
                 assert main(argv) == 0
             reports.append((json.loads(stdout.getvalue()), out))
         runs[route] = (*reports[0], reports[1][0])
@@ -316,9 +324,13 @@ def _euroc_dir(root):
     return root
 
 
-def test_open_dataset_reads_each_layout(kitti_dir, tmp_path):
-    """KITTI, EuRoC (chosen by its `mav0/` directory) and synthetic through
-    `_open_dataset`, frames cropped to --height x --width."""
+def test_open_dataset_reads_each_layout(kitti_dir, tmp_path, monkeypatch):
+    """KITTI (here with PIL; the native loader's branch is in
+    tests/test_torch_runtime.py), EuRoC (chosen by its `mav0/` directory)
+    and synthetic through `_open_dataset`, frames cropped to --height x
+    --width."""
+    from gl_slam_tpu_torch.runtime import native_lib
+    monkeypatch.setattr(native_lib, "available", lambda: False)
     args = argparse.Namespace(
         dataset=kitti_dir, sequence="00", height=150, width=200, kpts=96,
         landmarks=300, last_frame=3, desc_dim=64, scene_seed=7)

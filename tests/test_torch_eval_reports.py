@@ -18,7 +18,11 @@ card by its script; a test skips while its report is absent.
     --track-report): the weights the port trained from scratch hold the
     bounds of tests/test_learned_e2e.py::test_learned_pipeline_tracks on
     its held-out scene, every trainer ran and lowered its loss, and the
-    card's name and power limit stand in the report.
+    card's name and power limit stand in the report;
+  * NATIVE_LOADER_EVAL_TORCH.json (scripts/eval_native_loader_torch.py):
+    the bounds of tests/test_runtime.py::test_native_loader_eval_bounds,
+    every frame delivered by the native loader, from an NVIDIA card. It
+    waits for a card whose machine has libpng (ROADMAP.md).
 """
 
 import json
@@ -100,3 +104,15 @@ def test_train_tiny_torch_report_bounds():
     assert res["mean_matches"] > 50, res
     assert res["num_ba_runs"] >= 5, res
     assert rep["committed"]["num_keyframes"] == 32, rep
+
+
+def test_native_loader_eval_torch_report_bounds():
+    rep = _report("NATIVE_LOADER_EVAL_TORCH.json",
+                  "eval_native_loader_torch.py")
+    assert rep["card"].startswith("NVIDIA"), rep["card"]
+    assert rep["native_loader"] is True, rep
+    assert rep["loader_frames_delivered"] == rep["png_tree_frames"], rep
+    assert rep["frames_tracked"] >= 60, rep
+    assert rep["frames_rejected"] <= 2, rep
+    assert rep["ate_rmse_m"] <= 0.5, rep
+    assert rep["mean_matches"] > 300, rep

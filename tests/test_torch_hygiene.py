@@ -1,9 +1,11 @@
 """The port stands alone and runs on the card unless told otherwise.
 
-gl_slam_tpu_torch/, chip_smoke.py and the port's scripts
-(scripts/*_torch.py) must import no JAX, no Flax and nothing of the JAX
-package (the card's machine has neither), and the port's entry points
-must refuse to fall back to the CPU silently.
+gl_slam_tpu_torch/ (its native runtime included), chip_smoke.py, the
+port's scripts (scripts/*_torch.py) and examples (examples/*_torch.py)
+must import no JAX, no Flax and nothing of the JAX package (the card's
+machine has neither), the native runtime must build from the port's own
+sources, and the port's entry points must refuse to fall back to the CPU
+silently.
 """
 
 import ast
@@ -23,6 +25,9 @@ def _port_files():
     scripts = os.path.join(ROOT, "scripts")
     files += [os.path.join(scripts, n) for n in sorted(os.listdir(scripts))
               if n.endswith("_torch.py")]
+    examples = os.path.join(ROOT, "examples")
+    files += [os.path.join(examples, n)
+              for n in sorted(os.listdir(examples)) if n.endswith("_torch.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "gl_slam_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return files
@@ -63,6 +68,40 @@ def test_scan_sees_the_package():
         assert os.path.join("scripts", script) in names
     assert os.path.join("gl_slam_tpu_torch", "train",
                         "frontend_train.py") in names
+    assert os.path.join("gl_slam_tpu_torch", "runtime",
+                        "native_lib.py") in names
+    assert os.path.join("scripts", "eval_native_loader_torch.py") in names
+    for example in ("run_synthetic_torch.py", "run_images_torch.py"):
+        assert os.path.join("examples", example) in names
+
+
+def test_native_runtime_reads_only_its_own_sources():
+    """native_lib builds from gl_slam_tpu_torch/runtime/native/ into
+    gl_slam_tpu_torch/runtime/build/ and names no path of the JAX
+    package; its C++ sources include no file of it either."""
+    from gl_slam_tpu_torch.runtime import native_lib
+    here = os.path.realpath(os.path.join(ROOT, "gl_slam_tpu_torch",
+                                         "runtime"))
+    assert os.path.realpath(native_lib._SRC) == os.path.join(here, "native")
+    assert os.path.realpath(native_lib.BUILD_DIR) == os.path.join(here,
+                                                                  "build")
+    for name in ("loader", "covis"):
+        lib = os.path.realpath(native_lib.library_path(name))
+        assert lib.startswith(os.path.join(here, "build") + os.sep)
+        src = os.path.join(here, "native", native_lib._LIBS[name][0])
+        assert os.path.exists(src)
+        assert "gl_slam_tpu/" not in open(src).read()
+    tree = ast.parse(open(os.path.join(here, "native_lib.py")).read())
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef))
+            and ast.get_docstring(n) is not None}
+    strings = [n.value for n in ast.walk(tree)
+               if isinstance(n, ast.Constant) and isinstance(n.value, str)
+               and id(n) not in docs]
+    assert not any("gl_slam_tpu" in s and "gl_slam_tpu_torch" not in s
+                   and ("/" in s or os.sep in s) for s in strings)
+    assert "gl_slam_tpu_torch/runtime/build/" in open(
+        os.path.join(ROOT, ".gitignore")).read()
 
 
 @pytest.fixture
@@ -126,6 +165,47 @@ def test_per_frame_entry_points_default_to_the_card(no_cuda, tmp_path):
         assert not out.exists()
 
 
+def test_extractor_matcher_and_examples_default_to_the_card(no_cuda):
+    """SuperPointExtractor, LightGlueMatcher, SubpixRefiner and both
+    examples without a device raise; the examples take --device cpu."""
+    from gl_slam_tpu_torch.models.lightglue import LightGlueMatcher
+    from gl_slam_tpu_torch.models.subpix import SubpixRefiner
+    from gl_slam_tpu_torch.models.superpoint import SuperPointExtractor
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SuperPointExtractor(48, 64, descriptor_dim=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LightGlueMatcher(48, 64, input_dim=16, dim=16, heads=2, layers=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SubpixRefiner(desc_dim=16)
+    for example in ("run_synthetic_torch.py", "run_images_torch.py"):
+        mod = _load_module(os.path.join(ROOT, "examples", example))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(["--frames", "4"])
+
+
+def test_examples_run_on_the_cpu(capsys):
+    mod = _load_module(os.path.join(ROOT, "examples",
+                                    "run_synthetic_torch.py"))
+    assert mod.main(["--frames", "6", "--kpts", "128", "--device",
+                     "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "ATE-RMSE" in out and "over 6 frames" in out
+
+
+def test_native_loader_eval_refuses_without_the_loader(monkeypatch,
+                                                        tmp_path):
+    """The eval is evidence for the native loader: without it, it stops
+    before rendering or writing anything."""
+    from gl_slam_tpu_torch.runtime import native_lib
+    monkeypatch.setattr(native_lib, "available", lambda: False)
+    mod = _load_script("eval_native_loader_torch.py")
+    out = tmp_path / "r.json"
+    with pytest.raises(SystemExit, match="native PNG loader"):
+        mod.main(["--out", str(out), "--tree", str(tmp_path / "tree"),
+                  "--device", "cpu"])
+    assert not out.exists() and not (tmp_path / "tree").exists()
+
+
 def test_trainers_default_to_the_card(no_cuda):
     """The four trainers without a device raise before they render or
     train anything; with device="cpu" they run (test_torch_train_*.py)."""
@@ -153,13 +233,17 @@ def test_trainers_default_to_the_card(no_cuda):
     ft.train_superpoint(sp, scene, 4, 8, steps=1, device="cpu")
 
 
-def _load_script(name):
+def _load_module(path):
     import importlib.util
-    path = os.path.join(ROOT, "scripts", name)
-    spec = importlib.util.spec_from_file_location(name[:-3], path)
+    name = os.path.basename(path)[:-3]
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _load_script(name):
+    return _load_module(os.path.join(ROOT, "scripts", name))
 
 
 @pytest.mark.parametrize("script", ["train_frontend_torch.py",

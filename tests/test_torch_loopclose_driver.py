@@ -37,6 +37,8 @@ from gl_slam_tpu_torch.slam.chunk_driver import ChunkedPipeline
 from gl_slam_tpu_torch.train import e2e as t_e2e
 from gl_slam_tpu_torch.train import evals as t_evals
 
+import jax_weights
+
 # Small shapes: one ATen thread per test worker keeps the parallel suite
 # from oversubscribing the cores.
 torch.set_num_threads(1)
@@ -120,7 +122,7 @@ def forced_runs(scene_stack):
     pipeline, JAX detections, port pipeline, port detections), each
     detection recorded as the detector returned it."""
     scene, stack, scale = scene_stack
-    sp, spp, lg, lgp = j_e2e.load_tiny_frontend(CKPT)
+    sp, spp, lg, lgp = jax_weights.load_tiny_frontend(CKPT)
     cfg = _cfg(j_e2e, True)
     jp = JPipeline(cfg, jnp.asarray(scene.K, jnp.float32),
                    sp.clone(dtype=jnp.float32), lg.clone(dtype=jnp.float32),

@@ -29,6 +29,8 @@ from gl_slam_tpu_torch.models.superpoint import (SuperPointNet,
 from gl_slam_tpu_torch.ops import nms as t_nms
 from gl_slam_tpu_torch.train import e2e as t_e2e
 
+import jax_weights
+
 # Small shapes: one ATen thread per test worker keeps the parallel suite
 # from oversubscribing the cores.
 torch.set_num_threads(1)
@@ -51,7 +53,7 @@ def lightglue_pair():
     jl = JLightGlue(input_dim=D, dtype=jnp.float32, **j_e2e.TINY_LG)
     d8, k8, m8 = jnp.zeros((8, D)), jnp.zeros((8, 2)), jnp.ones((8,), bool)
     jp = j_load(os.path.join(CKPT, "lg_tiny.npz"),
-                jl.init(jax.random.PRNGKey(0), d8, d8, k8, k8, m8, m8))
+                jax_weights.like(jl, d8, d8, k8, k8, m8, m8))
     tl = LightGlueNet(input_dim=D, dtype=torch.float32, **t_cfg.TINY_LG)
     ckpt.load_module(tl, os.path.join(CKPT, "lg_tiny.npz"),
                      ckpt.lightglue_state_dict)
@@ -103,7 +105,7 @@ def superpoint_pair():
     js = JSuperPoint(descriptor_dim=D, channels=j_e2e.TINY_SP_CHANNELS,
                      dtype=jnp.float32)
     jp = j_load(os.path.join(CKPT, "sp_tiny.npz"),
-                js.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 48, 1))))
+                jax_weights.like(js, jnp.zeros((1, 32, 48, 1))))
     ts = SuperPointNet(descriptor_dim=D, channels=t_cfg.TINY_SP_CHANNELS,
                        dtype=torch.float32)
     ckpt.load_module(ts, os.path.join(CKPT, "sp_tiny.npz"),

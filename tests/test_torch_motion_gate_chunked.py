@@ -31,6 +31,7 @@ from gl_slam_tpu_torch.train import e2e as t_e2e
 
 import test_torch_slice as ts_mod
 from test_torch_motion_gate import KEEP_THIRD
+import jax_weights
 
 # Small shapes: one ATen thread per test worker keeps the parallel suite
 # from oversubscribing the cores.
@@ -62,7 +63,7 @@ def chunked(request):
         return dataclasses.replace(cfg, runtime=dataclasses.replace(
             cfg.runtime, every_frame_keyframe=False, **runtime))
 
-    sp, spp, lg, lgp = j_e2e.load_tiny_frontend(ts_mod.CKPT)
+    sp, spp, lg, lgp = jax_weights.load_tiny_frontend(ts_mod.CKPT)
     jcfg = gated(ts_mod._backend(j_e2e.micro_config(
         ts_mod.H, ts_mod.W, ts_mod.N, j_e2e.TINY_DESC_DIM), False))
     jp = JChunked(jcfg, jnp.asarray(scene.K, jnp.float32),

@@ -59,6 +59,7 @@ from gl_slam_tpu_torch.train import e2e as t_e2e
 import test_torch_slice as ts_mod
 from test_torch_chunk_args import _chunk_draws
 from test_torch_motion_gate import KEEP_THIRD
+import jax_weights
 
 # Small shapes: one ATen thread per test worker keeps the parallel suite
 # from oversubscribing the cores.
@@ -95,7 +96,7 @@ def _setup(gated):
     stacks = [t_e2e.render_stack(sc, 2 + T, N) for sc in scenes]
     K = scenes[0].K
     assert all(np.array_equal(sc.K, K) for sc in scenes)
-    sp, spp, lg, lgp = j_e2e.load_tiny_frontend(ts_mod.CKPT)
+    sp, spp, lg, lgp = jax_weights.load_tiny_frontend(ts_mod.CKPT)
     sp, lg = sp.clone(dtype=jnp.float32), lg.clone(dtype=jnp.float32)
     params = j_fused.FusedParams(sp=spp, lg=lgp)
     tsp, tlg = t_e2e.load_tiny_frontend(ts_mod.CKPT, device="cpu",
@@ -276,7 +277,16 @@ def test_multistream_motion_gate_matches_jax(gated):
 
 
 def test_distinct_intrinsics_per_stream_raise():
+    """Distinct intrinsics per stream are carried on the stream axis now
+    (tests/test_torch_intrinsics.py holds them to JAX); what raises is a
+    K whose rows do not match the streams, in the chunk and the tracker."""
+    from gl_slam_tpu_torch.parallel.multistream import MultiStreamTracker
     cfg = t_config.micro_config(H, W, N, D)
+    sp, lg = t_e2e.load_tiny_frontend(ts_mod.CKPT, device="cpu")
     K = np.stack([np.eye(3), 2 * np.eye(3)]).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_fused.build_multistream_chunk_fn(cfg, None, None, K, T, 2)
+    t_fused.build_multistream_chunk_fn(cfg, sp, lg, K, T, 2)
+    MultiStreamTracker(cfg, K, 2, device="cpu")
+    with pytest.raises(ValueError, match="3 streams"):
+        t_fused.build_multistream_chunk_fn(cfg, sp, lg, K, T, 3)
+    with pytest.raises(ValueError, match="3 streams"):
+        MultiStreamTracker(cfg, K, 3, device="cpu")

@@ -15,6 +15,12 @@ before and after the BA pass (tests/test_torch_slice.py's first-chunk
 bounds); after the pass `R_cur` / `t_cur` are each stream's last
 keyframe pose, as in JAX. A device list of three entries (one stream a
 part) agrees with one device to 1e-4.
+
+Distinct intrinsics per stream: the same three scenes, each with a K of
+its own (f moved by +1, -2 and +3 %, the principal point by -1, +2 and
+-3 %, as tests/test_torch_intrinsics.py's cameras), through both trackers
+with (S, 3, 3) K, within the tolerances above; and in the port a K whose
+rows are all equal gives the bits of the shared (3, 3) K.
 """
 
 import numpy as np
@@ -75,9 +81,10 @@ def _draws(cfg, n_steps):
     return np.stack(boot), [np.stack(u) for u in steps]
 
 
-def _run_port(cfg, scenes, boot, steps, **kw):
+def _run_port(cfg, scenes, boot, steps, K=None, **kw):
     N = cfg.frontend.max_keypoints
-    tr = MultiStreamTracker(cfg, scenes[0].K, S, device="cpu", **kw)
+    K = scenes[0].K if K is None else K
+    tr = MultiStreamTracker(cfg, K, S, device="cpu", **kw)
     outs = [tr.bootstrap(_frame(scenes, 0, N), _frame(scenes, 1, N),
                          _scales(scenes), u=boot)]
     for i, u in enumerate(steps):
@@ -172,3 +179,82 @@ def test_default_draws_are_per_stream():
     again = MultiStreamTracker(cfg, np.eye(3, dtype=np.float32), S,
                                device="cpu", seed=7).draw()
     assert torch.equal(u, again)
+
+
+def _cameras(scenes):
+    """Each scene with its own K: f moved by +1, -2, +3 %, the principal
+    point by -1, +2, -3 %."""
+    out = []
+    for s, sc in enumerate(scenes):
+        K = np.array(sc.K, np.float64)
+        K[[0, 1], [0, 1]] *= 1 + (0.01, -0.02, 0.03)[s]
+        K[[0, 1], [2, 2]] *= 1 + (-0.01, 0.02, -0.03)[s]
+        out.append(sc._replace(K=K))
+    return out
+
+
+@pytest.fixture(scope="module")
+def distinct_K(runs):
+    """Both trackers over the scenes with their own cameras. The JAX
+    tracker reuses the programs `runs` compiled (K is one of their inputs,
+    so new values need no new program)."""
+    (jt0, _, _), _, (tcfg, scenes, boot, steps) = runs
+    scenes = _cameras(scenes)
+    Ks = np.stack([sc.K for sc in scenes]).astype(np.float32)
+    N = tcfg.frontend.max_keypoints
+    jt = JTracker(j_tiny(), Ks, S)
+    jt._bootstrap, jt._step, jt._ba = jt0._bootstrap, jt0._step, jt0._ba
+    jouts = [jt.bootstrap(_frame(scenes, 0, N), _frame(scenes, 1, N),
+                          _scales(scenes))]
+    for i in range(2):
+        jouts.append(jt.step(*_frame(scenes, 2 + i, N), 2 + i))
+    jt.ba(0, 4)
+    jt.block()
+    tr = MultiStreamTracker(tcfg, Ks, S, device="cpu")
+    touts = [tr.bootstrap(_frame(scenes, 0, N), _frame(scenes, 1, N),
+                          _scales(scenes), u=boot)]
+    for i, u in enumerate(steps):
+        touts.append(tr.step(*_frame(scenes, 2 + i, N), 2 + i, u=u))
+    tr.ba(0, 4)
+    tr.block()
+    return jt, jouts, tr, touts
+
+
+def test_distinct_intrinsics_match_jax(distinct_K):
+    jt, jouts, tr, touts = distinct_K
+    assert len({K.tobytes() for K in np.asarray(jt.K)}) == S
+    for j, t in zip(jouts, touts):
+        np.testing.assert_array_equal(t.frame_ok.numpy(),
+                                      np.asarray(j.frame_ok))
+        np.testing.assert_array_equal(t.num_matches.numpy(),
+                                      np.asarray(j.num_matches))
+        d = np.abs(t.num_inliers.numpy().astype(int)
+                   - np.asarray(j.num_inliers).astype(int))
+        assert d.max() <= 2
+        np.testing.assert_allclose(t.R.numpy(), np.asarray(j.R), atol=1e-3)
+        np.testing.assert_allclose(t.t.numpy(), np.asarray(j.t), atol=1e-3)
+    assert np.asarray(jouts[-1].frame_ok).all()
+    jm, tm = jt.state.map, tr.state.map
+    np.testing.assert_allclose(tm.kf_R.numpy()[:, :4],
+                               np.asarray(jm.kf_R)[:, :4], atol=1e-3)
+    np.testing.assert_allclose(tm.kf_t.numpy()[:, :4],
+                               np.asarray(jm.kf_t)[:, :4], atol=1e-3)
+
+
+def _leaves(tree):
+    for x in tree:
+        if isinstance(x, tuple):
+            yield from _leaves(x)
+        elif x is not None:
+            yield x
+
+
+def test_equal_K_rows_give_the_bits_of_a_shared_K(runs):
+    _, (tr, touts, _), (cfg, scenes, boot, steps) = runs
+    K = np.stack([np.asarray(scenes[0].K, np.float32)] * S)
+    tr_rows, outs_rows, _ = _run_port(cfg, scenes, boot, steps, K=K)
+    for a, b in zip(touts, outs_rows):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    for x, y in zip(_leaves(tr.state), _leaves(tr_rows.state)):
+        assert torch.equal(x, y)

@@ -38,6 +38,7 @@ from gl_slam_tpu_torch.train import e2e as t_e2e
 
 import test_torch_pipeline as tp_mod
 import test_torch_slice as ts_mod
+import jax_weights
 
 # Small shapes: one ATen thread per test worker keeps the parallel suite
 # from oversubscribing the cores.
@@ -167,7 +168,7 @@ def chunked():
     bootstrap plus one chunk of 8 of tests/test_torch_slice.py's scene,
     BA off."""
     scene, stack, scale = ts_mod._scene()
-    sp, spp, lg, lgp = j_e2e.load_tiny_frontend(ts_mod.CKPT)
+    sp, spp, lg, lgp = jax_weights.load_tiny_frontend(ts_mod.CKPT)
     jcfg = pnp_cfg(ts_mod._backend(j_e2e.micro_config(
         ts_mod.H, ts_mod.W, ts_mod.N, j_e2e.TINY_DESC_DIM), False))
     refs = []

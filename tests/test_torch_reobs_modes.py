@@ -48,6 +48,7 @@ from gl_slam_tpu_torch.slam import reobserve as t_reobs
 from gl_slam_tpu_torch.slam.pipeline import TrackingPipeline
 
 import test_torch_pipeline as tp_mod
+import jax_weights
 
 # Small shapes: one ATen thread per test worker keeps the parallel suite
 # from oversubscribing the cores.
@@ -124,7 +125,7 @@ def matchers():
     jl = JLightGlue(input_dim=D, dtype=jnp.float32, **j_e2e.TINY_LG)
     d8, k8, m8 = jnp.zeros((8, D)), jnp.zeros((8, 2)), jnp.ones((8,), bool)
     jp = j_load(os.path.join(CKPT, "lg_tiny.npz"),
-                jl.init(jax.random.PRNGKey(0), d8, d8, k8, k8, m8, m8))
+                jax_weights.like(jl, d8, d8, k8, k8, m8, m8))
 
     def j_match_fn(kpts0, desc0, valid0, kpts1, desc1, valid1):
         f0, f1, z0, z1 = jl.apply(jp, desc0, desc1,

@@ -23,6 +23,7 @@ from gl_slam_tpu_torch import config as t_config
 from gl_slam_tpu_torch.train import e2e as t_e2e
 
 import test_torch_slice as ts_mod
+import jax_weights
 
 # Small shapes: one ATen thread per test worker keeps the parallel suite
 # from oversubscribing the cores.
@@ -45,7 +46,7 @@ def chunked_runs():
     over a bootstrap plus one chunk of 8 of tests/test_torch_slice.py's
     scene, BA off, on the JAX key recurrence's RANSAC draws."""
     scene, stack, scale = ts_mod._scene()
-    sp, spp, lg, lgp = j_e2e.load_tiny_frontend(ts_mod.CKPT)
+    sp, spp, lg, lgp = jax_weights.load_tiny_frontend(ts_mod.CKPT)
     sp, lg = sp.clone(dtype=jnp.float32), lg.clone(dtype=jnp.float32)
     tsp, tlg = t_e2e.load_tiny_frontend(ts_mod.CKPT, device="cpu",
                                         dtype=torch.float32)

@@ -30,6 +30,8 @@ from gl_slam_tpu_torch import config as t_cfg
 from gl_slam_tpu_torch.slam.chunk_driver import ChunkedPipeline
 from gl_slam_tpu_torch.train import e2e as t_e2e
 
+import jax_weights
+
 # Small shapes: one ATen thread per test worker keeps the parallel suite
 # from oversubscribing the cores.
 torch.set_num_threads(1)
@@ -80,7 +82,7 @@ def _both_runs(ba):
     D = j_e2e.TINY_DESC_DIM
     scene, stack, scale = _scene()
 
-    sp, spp, lg, lgp = j_e2e.load_tiny_frontend(CKPT)
+    sp, spp, lg, lgp = jax_weights.load_tiny_frontend(CKPT)
     sp = sp.clone(dtype=jnp.float32)
     lg = lg.clone(dtype=jnp.float32)
     cfg = _backend(j_e2e.micro_config(H, W, N, D), ba)
@@ -200,10 +202,13 @@ TAIL = 5                     # real frames of the tail chunk, padded to 8
 
 
 @pytest.fixture(scope="module")
-def tail_runs():
+def tail_runs(both_runs_ba):
     """Bootstrap, one chunk of 8, then frames 10-14 padded to a chunk of 8
     with copies of frame 14 and gated (`frame_gate`), BA every chunk, on
-    each side: (JAX outputs, JAX pipeline, port outputs, port pipeline)."""
+    each side: (JAX outputs, JAX pipeline, port outputs, port pipeline).
+    The JAX pipeline runs the programs that `both_runs_ba`'s pipeline
+    compiled for the same configuration and networks (a fresh `jax.jit`
+    would compile them again)."""
     D = j_e2e.TINY_DESC_DIM
     scene, stack, scale = _scene()
     first = stack[2:2 + CHUNK]
@@ -212,12 +217,17 @@ def tail_runs():
                                      CHUNK - TAIL, axis=0)])
     gate = np.arange(CHUNK) < TAIL
 
-    sp, spp, lg, lgp = j_e2e.load_tiny_frontend(CKPT)
+    sp, spp, lg, lgp = jax_weights.load_tiny_frontend(CKPT)
     cfg = _backend(j_e2e.micro_config(H, W, N, D), ba=True)
     jp = JPipeline(cfg, jnp.asarray(scene.K, jnp.float32),
                    sp.clone(dtype=jnp.float32), lg.clone(dtype=jnp.float32),
                    j_fused.FusedParams(sp=spp, lg=lgp), chunk=CHUNK,
                    ba_every=CHUNK)
+    compiled = both_runs_ba[3]
+    assert compiled.cfg == cfg and compiled.enable_ba and jp.enable_ba
+    jp.chunk_fn, jp.extract_fn, jp._ba_fn = (compiled.chunk_fn,
+                                             compiled.extract_fn,
+                                             compiled._ba_fn)
     jp.bootstrap_from_images(stack[0], stack[1], scale)
     jp.track_chunk(jnp.asarray(first), 2)
     jp.track_chunk(jnp.asarray(tail), 2 + CHUNK, frame_gate=gate)

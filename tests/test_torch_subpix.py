@@ -34,6 +34,8 @@ from gl_slam_tpu_torch.ops import match as t_match
 from gl_slam_tpu_torch.slam import fused as t_fused
 from gl_slam_tpu_torch.train import e2e as t_e2e
 
+import jax_weights
+
 # Small shapes: one ATen thread per test worker keeps the parallel suite
 # from oversubscribing the cores.
 torch.set_num_threads(1)
@@ -49,8 +51,8 @@ def _heads(preset, dtype=jnp.float32):
     path = os.path.join(CKPT, f"kspair_{preset}.npz")
     jh = j_subpix.PairSubpixHead(patch=P, offset_range=1.5, dtype=dtype)
     z = jnp.zeros((4, P, P))
-    jp = j_load(path, jh.init(jax.random.PRNGKey(0), z, z, jnp.zeros((4, D)),
-                              jnp.zeros((4, D)), jnp.zeros((4,))))
+    jp = j_load(path, jax_weights.like(jh, z, z, jnp.zeros((4, D)),
+                                       jnp.zeros((4, D)), jnp.zeros((4,))))
     th = t_subpix.PairSubpixHead(D, patch=P, offset_range=1.5,
                                  dtype=torch.float32 if dtype == jnp.float32
                                  else torch.bfloat16)
@@ -100,8 +102,7 @@ def _single_heads(preset):
     D = PRESETS[preset]
     jh = j_subpix.SubpixHead(patch=P, offset_range=1.5, dtype=jnp.float32)
     jp = j_load(os.path.join(CKPT, f"ks_{preset}.npz"),
-                jh.init(jax.random.PRNGKey(0), jnp.zeros((4, P, P)),
-                        jnp.zeros((4, D))))
+                jax_weights.like(jh, jnp.zeros((4, P, P)), jnp.zeros((4, D))))
     th = t_e2e.load_tiny_subpix(CKPT, device="cpu", dtype=torch.float32) \
         if preset == "tiny" else t_e2e.load_flagship_subpix(
             CKPT, pair=False, device="cpu", dtype=torch.float32)
@@ -134,7 +135,7 @@ def test_single_mode_extraction_matches_jax():
     scene = synthetic.make_scene(num_landmarks=900, num_frames=3, height=H,
                                  width=W, desc_dim=D, seed=11)
     imgs = t_e2e.render_stack(scene, 3, N)[1:]
-    sp, spp, _, _ = j_e2e.load_tiny_frontend(CKPT)
+    sp, spp, _, _ = jax_weights.load_tiny_frontend(CKPT)
     jh, jp, th = _single_heads("tiny")
     cfg = j_e2e.micro_config(H, W, N, D)
     want = j_fused.build_extract_fn(cfg, sp.clone(dtype=jnp.float32),
@@ -297,7 +298,7 @@ def _slice_runs(pair, ba=False):
     c1 = -scene.poses_R[1].T @ scene.poses_t[1]
     scale = float(np.linalg.norm(c1 - c0))
 
-    sp, spp, lg, lgp = j_e2e.load_tiny_frontend(CKPT)
+    sp, spp, lg, lgp = jax_weights.load_tiny_frontend(CKPT)
     ks, ksp = j_e2e.load_tiny_subpix(CKPT, pair=pair)
     sp = sp.clone(dtype=jnp.float32)
     lg = lg.clone(dtype=jnp.float32)

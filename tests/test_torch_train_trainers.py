@@ -36,6 +36,8 @@ from gl_slam_tpu_torch.models.lightglue import LightGlueNet
 from gl_slam_tpu_torch.models.superpoint import SuperPointNet
 from gl_slam_tpu_torch.train import frontend_train as ft
 
+import jax_weights
+
 torch.set_num_threads(1)
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints")
@@ -56,7 +58,7 @@ def tiny():
     jsp = JSuperPoint(descriptor_dim=D, channels=t_cfg.TINY_SP_CHANNELS,
                       dtype=jnp.float32)
     jp = j_load(os.path.join(CKPT, "sp_tiny.npz"),
-                jsp.init(jax.random.PRNGKey(0), jnp.zeros((1, H, W, 1))))
+                jax_weights.like(jsp, jnp.zeros((1, H, W, 1))))
     sp = SuperPointNet(descriptor_dim=D, channels=t_cfg.TINY_SP_CHANNELS,
                        dtype=torch.float32)
     ckpt.load_module(sp, os.path.join(CKPT, "sp_tiny.npz"),
