@@ -43,11 +43,12 @@ Phases (any failure exits non-zero and prints no result line):
      padded to 8 and gated off; check the report (31 frames fed and
      tracked, 3 rejected, ATE, matches over the real frames, BA count, 0
      recoveries), the artifacts and the launch counts after the warm-up.
-     The KITTI route reads through the native PNG prefetch loader where it
-     builds (g++ with libpng), else with PIL: the phase prints which, holds
-     the loader's frame counter to the frames fed (0 on PIL), and prints
-     the host ms per frame spent waiting for frames (with the loader, also
-     the same run on PIL beside it);
+     The KITTI route reads through the native PNG prefetch loader (its own
+     PNG reader, built with g++ at first use; the phase fails if it does
+     not build), and the loader's frame counter must equal the frames fed;
+     the phase prints the host ms per frame spent waiting for frames, then
+     the same wait on PIL and on the loader in turns over the first 18
+     frames;
   8. run the command line's per-frame route on the same directory:
      `--frontend superpoint --per-frame --preset flagship` (batch-1
      extraction through the NMS kernel at the CLI's radius 3, LightGlue
@@ -59,7 +60,7 @@ Phases (any failure exits non-zero and prints no result line):
      at radius 4) and the default oracle route (synthetic sequence), each
      with `--live-viz 8 --checkpoint`, and their artifacts; the learned
      run's frame fetches, loader counter and host wait per frame as in
-     phase 7.
+     phase 7 (the loader must build here too).
   9. run the chunked tracker of phase 3 (same frames, BA every 8, centroid
      refinement, loop closing off, same draws) once per tracker option:
      the batched and the merged re-observation modes (one matcher pass a
@@ -119,9 +120,21 @@ sets x 2 heads, 2048 x 2048; 8 maps of 376 x 1240 at radius 3).
      (runtime/native_lib.CovisGraph, built with g++) over phase 3's final
      keyframe / point table: its edge count against the plain rule, one
      query and one points_of.
+ 13. point-table turnover at flagship width: the long run's scene
+     (scripts/longrun_learned_torch.py --preset flagship: seed 11,
+     forward_turn_band, 170 landmarks a metre over 1000 frames) for its
+     first 66 frames through `run_learned_e2e`, pair head, BA every 8,
+     loop closing on, 1024 keyframe slots, the point table pinned to
+     TURNOVER_MAX_POINTS and both recycling ages to TURNOVER_AGE
+     keyframes, so that the run creates more than twice the table in new
+     points and the eviction under pressure (state.recycle_free_slots'
+     `stale_age` branch) frees healthy points; held to
+     tests/test_longrun.py's bounds, every frame kept, 0 recoveries, the
+     launch counts the path implies; prints the free slots after each BA
+     pass and how many of them the eviction under pressure freed.
 The line before the last is the `kernels` JSON (the three kernels at the
-shapes of phase 10's distinct-K run, with its launches); the last line is
-the device JSON. Details go to chiprun_out/chip_smoke.json.
+shapes of phase 13's run, with its launches); the last line is the device
+JSON. Details go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -188,6 +201,19 @@ MS_C_MOVE = (-0.01, 0.02, -0.03, 0.015)
 TRAIN_H, TRAIN_W, TRAIN_FRAMES, TRAIN_STEPS, TRAIN_PAIRS = 376, 1240, 8, 3, 2
 TRAIN_NMS_RADIUS, LG_LAYERS = 3, 9
 DESCENT_STEPS = 30
+# Point-table turnover (phase 13): the long run's scene (1000 frames of
+# scripts/longrun_learned_torch.py --preset flagship) for its first
+# TURNOVER_FRAMES frames, 1024 keyframe slots as in the long run, the point
+# table pinned to TURNOVER_MAX_POINTS (the run triangulates ~220 points a
+# frame, so ~14 k in 64 tracked frames: more than twice the table) and both
+# recycling ages (`recycle_min_age`, `recycle_stale_age`; 32 and 64 by
+# default) cut to TURNOVER_AGE keyframes, one past the map-match window of
+# 20, so that healthy points age out for eviction inside the phase.
+LONGRUN_SCENE_FRAMES = 1000
+TURNOVER_FRAMES = 66
+TURNOVER_MAX_POINTS = 6144
+TURNOVER_MAX_KEYFRAMES = 1024
+TURNOVER_AGE = 21
 
 
 def expected_launches(n_chunks, reobs_mode="separate"):
@@ -1256,10 +1282,54 @@ class FrameWaits:
         return False
 
 
+# The host wait for frames in turns (phase 7): after the counted run on
+# the native loader, the command line over the first TURN_FRAMES frames (a
+# bootstrap and two chunks) on PIL, then on the loader again.
+TURN_FRAMES = 18
+TURN_ORDER = ("pil", "native")
+
+
+def frame_waits_in_turns(torch, argv, out):
+    """[(reader, host ms a frame waiting for frames)] of the command line
+    `argv` cut to TURN_FRAMES frames, one run per entry of TURN_ORDER
+    (PIL by `native_lib.available` reading False), each into a directory of
+    its own under `out`'s parent, removed after."""
+    import contextlib
+    import io
+    import shutil
+
+    from gl_slam_tpu_torch import cli
+    from gl_slam_tpu_torch.runtime import native_lib
+
+    cut = list(argv)
+    cut[cut.index("--last-frame") + 1] = str(TURN_FRAMES - 1)
+    available = native_lib.available
+    turns = []
+    for i, reader in enumerate(TURN_ORDER):
+        d = f"{out}_turn{i}"
+        if reader == "pil":
+            native_lib.available = lambda: False
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    FrameWaits() as fw:
+                rc = cli.main(cut[:-1] + [d])
+            torch.cuda.synchronize()
+        finally:
+            native_lib.available = available
+            shutil.rmtree(d, ignore_errors=True)
+        check(rc == 0, f"command line on {reader} ({TURN_FRAMES} frames) "
+              f"failed")
+        check(fw.delivered == (TURN_FRAMES if reader == "native" else 0),
+              f"command line on {reader}: the loader delivered "
+              f"{fw.delivered} frames")
+        turns.append((reader, fw.ms_per_frame))
+    return turns
+
+
 def native_loader_state():
-    """(built, message): whether the native PNG loader builds on this
-    machine (g++ with the libpng headers and library), and what the
-    command line therefore reads KITTI frames with."""
+    """(built, message): whether the native PNG loader builds and loads
+    on this machine (g++ and the C++ runtime; its PNG reader needs no
+    libpng or zlib). Phases 7 and 8 fail without it."""
     from gl_slam_tpu_torch.runtime import native_lib
     if native_lib.available():
         return True, ("native PNG loader built "
@@ -1267,8 +1337,7 @@ def native_loader_state():
     err = (native_lib.build_error() or "").strip().splitlines()
     why = next((ln for ln in err if "error" in ln.lower()),
                err[0] if err else "")
-    return False, (f"native PNG loader not built on this machine ({why}); "
-                   f"the command line reads KITTI frames with PIL")
+    return False, f"native PNG loader not built on this machine ({why})"
 
 
 def run_cli(torch, dev, details):
@@ -1318,6 +1387,7 @@ def run_cli(torch, dev, details):
             "--chunk", str(chunk), "--ba-every", str(ba_every), "--out", out]
     native, native_msg = native_loader_state()
     print(f"  {native_msg}", flush=True)
+    check(native, f"command line: {native_msg}")
     stdout = io.StringIO()
     ChunkedPipeline.warmup = counted_warmup
     _build.reset_launch_counts()
@@ -1334,29 +1404,16 @@ def run_cli(torch, dev, details):
     launches = {k: v - seen["warmup"][k] for k, v in _build.LAUNCHES.items()}
     check(fw.frames == CLI_FRAMES, f"command line: {fw.frames} frame "
           f"fetches for {CLI_FRAMES} frames")
-    check(fw.delivered == (CLI_FRAMES if native else 0),
+    check(fw.delivered == CLI_FRAMES,
           f"command line: the native loader delivered {fw.delivered} "
-          f"frames ({native_msg})")
-    waits = {"native" if native else "pil": fw.ms_per_frame}
-    if native:
-        # the same run on PIL into a directory of its own, for the host
-        # wait per frame beside the loader's
-        from gl_slam_tpu_torch.runtime import native_lib
-        available = native_lib.available
-        native_lib.available = lambda: False
-        try:
-            with contextlib.redirect_stdout(io.StringIO()), \
-                    FrameWaits() as fw_pil:
-                check(cli.main(argv[:-1] + [out + "_pil"]) == 0,
-                      "command line on PIL failed")
-            torch.cuda.synchronize()
-        finally:
-            native_lib.available = available
-            shutil.rmtree(out + "_pil", ignore_errors=True)
-        waits["pil"] = fw_pil.ms_per_frame
-    print(f"  host wait for frames: " + ", ".join(
-        f"{k} {v:.2f} ms a frame" for k, v in waits.items())
-        + f" over {CLI_FRAMES} frames", flush=True)
+          f"frames of {CLI_FRAMES} fed")
+    waits = {"native": fw.ms_per_frame}
+    turns = frame_waits_in_turns(torch, argv, out)
+    print(f"  host wait for frames: native {fw.ms_per_frame:.2f} ms a frame "
+          f"over {CLI_FRAMES} frames; in turns over the first {TURN_FRAMES} "
+          f"frames: " + ", ".join(f"{k} {v:.2f} ms" for k, v in turns),
+          flush=True)
+    waits["turns"] = turns
     report = json.loads(stdout.getvalue())
     want = expected_launches(CLI_CHUNKS)
     pipe = seen["pipe"]
@@ -1528,12 +1585,14 @@ def run_per_frame(torch, details, data):
     print(f"  {native_msg}: {fw.frames} frames fetched, host wait "
           f"{fw.ms_per_frame:.2f} ms a frame, {fw.delivered} delivered by "
           f"the native loader", flush=True)
+    check(native, f"per-frame route: {native_msg}")
     check(fw.frames == fed, f"per-frame route: {fw.frames} frame fetches "
           f"for {fed} frames fed")
-    check(fed <= fw.delivered <= CLI_FRAMES if native
-          else fw.delivered == 0,
+    # every frame up to --last-frame comes off the loader's ring once; a
+    # frame the motion gate skips is dropped there
+    check(fw.delivered == CLI_FRAMES,
           f"per-frame route: the native loader delivered {fw.delivered} "
-          f"frames")
+          f"frames of {CLI_FRAMES}")
     print(f"  frames tracked {report['frames_tracked']} of {CLI_FRAMES} "
           f"({gated} gated), rejected {int((~o.frame_ok).sum())}; mean "
           f"matches {matches:.1f}, inliers {inliers:.1f}; ATE "
@@ -2044,6 +2103,147 @@ def run_entry_points(torch, dev, details, cfg, sp, lg, stack, slice_map):
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: point-table turnover at flagship width
+
+def run_turnover(torch, dev, details):
+    """The long run's path at a cut depth: `run_learned_e2e` over the first
+    TURNOVER_FRAMES frames of its scene with the table pinned small (see
+    TURNOVER_*), counted and unprofiled. Every recycling pass (one a BA
+    pass) is recorded beside the same pass without the eviction under
+    pressure (`stale_age=0`) on the same table: the difference is what
+    that eviction freed. Returns the run's launches."""
+    import dataclasses
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import longrun_learned_torch as longrun
+    from gl_slam_tpu_torch.ops import _build
+    from gl_slam_tpu_torch.slam import chunk_driver
+    from gl_slam_tpu_torch.train import e2e, evals
+
+    args = longrun.parse_args([
+        "--preset", "flagship", "--frames", str(TURNOVER_FRAMES),
+        "--scene-frames", str(LONGRUN_SCENE_FRAMES), "--max-points",
+        str(TURNOVER_MAX_POINTS), "--weights",
+        os.path.join(ROOT, "checkpoints")])
+    args.device = dev
+    sp, lg, subpix, scene, cfg, run = longrun.setup(args)
+    cfg = dataclasses.replace(cfg, map=dataclasses.replace(
+        cfg.map, max_keyframes=TURNOVER_MAX_KEYFRAMES,
+        recycle_min_age=TURNOVER_AGE, recycle_stale_age=TURNOVER_AGE))
+    check(cfg.runtime.loop_closing and subpix is not None,
+          "turnover run: loop closing off or no pair head")
+    chunk, ba_every = run["chunk"], run["ba_every"]
+    t0 = time.perf_counter()
+    stack = e2e.render_stack(scene, TURNOVER_FRAMES,
+                             cfg.frontend.max_keypoints)
+    render_s = time.perf_counter() - t0
+    n_chunks = (TURNOVER_FRAMES - 2) // chunk
+    checks = evals.loop_checks_implied(cfg, TURNOVER_FRAMES, chunk)
+    want = expected_launches(n_chunks)
+    want["attention"] += ATTN_PER_DETECTION * len(checks)
+    want["assignment"] += ASSIGN_KERNELS_PER_CALL * len(checks)
+
+    passes = []
+    recycle = chunk_driver.recycle_free_slots
+
+    def recorded(m, min_age, budget, stale_age=0):
+        out = recycle(m, min_age, budget, stale_age=stale_age)
+        culled = recycle(m, min_age, budget, stale_age=0)
+        passes.append((out.num_kf, out.num_pts, out.free_count,
+                       culled.free_count))
+        return out
+
+    diag = {}
+    chunk_driver.recycle_free_slots = recorded
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        res = e2e.run_learned_e2e(sp, lg, scene, cfg, TURNOVER_FRAMES,
+                                  chunk=chunk, ba_every=ba_every,
+                                  device=dev, stack=stack, subpix=subpix,
+                                  diag_out=diag)
+        torch.cuda.synchronize()
+    finally:
+        chunk_driver.recycle_free_slots = recycle
+    launches = dict(_build.LAUNCHES)
+    wall = time.perf_counter() - t0
+    cap = cfg.map.max_points
+    rows = []
+    for kf, num_pts, stack_n, culled_n in passes:
+        fresh = cap - int(num_pts)
+        rows.append(dict(keyframes=int(kf), free_slots=fresh + int(stack_n),
+                         fresh=fresh, stack=int(stack_n),
+                         evicted_under_pressure=int(stack_n) - int(culled_n)))
+    o = diag["outputs"]
+    drift = 100.0 * res.ate_m / max(res.num_frames, 1)
+    print(f"  frames {res.num_frames} keyframes {res.num_keyframes} "
+          f"rejected {res.num_rejected} mean matches {res.mean_matches:.1f} "
+          f"ATE {res.ate_m:.4f} m ({drift:.3f} % of the trajectory) BA runs "
+          f"{res.num_ba_runs} recoveries {diag['num_recoveries']} loop checks "
+          f"at {[c['frames'] for c in diag['loop_checks']]} (implied "
+          f"{checks}) closures {res.loop_closures}; new points "
+          f"{res.total_new_points} into a table of {cap} "
+          f"({res.total_new_points / cap:.2f}x), {cfg.map.max_keyframes} "
+          f"keyframe slots, recycling ages {TURNOVER_AGE}; tracked fps "
+          f"{res.fps:.2f}, peak allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; launches "
+          f"{launches} (expected {want}); render {render_s:.1f} s, run "
+          f"{wall:.1f} s", flush=True)
+    for i, r in enumerate(rows):
+        print(f"  BA pass {i + 1} at {r['keyframes']} keyframes: free slots "
+              f"{r['free_slots']} (fresh {r['fresh']} + stack {r['stack']}), "
+              f"{r['evicted_under_pressure']} of the stack freed by the "
+              f"eviction under pressure this pass", flush=True)
+    check(np.isfinite(diag["R"]).all() and np.isfinite(diag["t"]).all()
+          and np.isfinite(o.R).all() and np.isfinite(o.t).all(),
+          "turnover run: non-finite pose")
+    check(res.num_frames == TURNOVER_FRAMES - (TURNOVER_FRAMES - 2) % chunk,
+          f"turnover run: {res.num_frames} frames")
+    check(res.num_keyframes == res.num_frames and res.num_rejected == 0,
+          f"turnover run: {res.num_keyframes} keyframes of "
+          f"{res.num_frames} frames")
+    # tests/test_longrun.py's bounds
+    check(drift <= 8.0, f"turnover run: drift {drift:.3f} % > 8 %")
+    check(cap <= 0.5 * res.total_new_points
+          and res.total_new_points > 1.5 * cap,
+          f"turnover run: {res.total_new_points} new points into a table "
+          f"of {cap}")
+    check(diag["num_recoveries"] == 0,
+          f"turnover run: {diag['num_recoveries']} recoveries")
+    check(res.num_ba_runs == n_chunks // max(ba_every // chunk, 1)
+          and len(rows) == res.num_ba_runs,
+          f"turnover run: {res.num_ba_runs} BA runs, {len(rows)} recycling "
+          f"passes")
+    check(sum(r["evicted_under_pressure"] for r in rows) > 0,
+          "turnover run: the eviction under pressure freed nothing")
+    check([c["frames"] for c in diag["loop_checks"]] == checks,
+          f"turnover run: loop checks {diag['loop_checks']} != {checks}")
+    check(launches == want,
+          f"turnover run: launch counts {launches} != {want}")
+    details["turnover"] = dict(
+        config=f"scripts/longrun_learned_torch.py --preset flagship --frames "
+               f"{TURNOVER_FRAMES} --scene-frames {LONGRUN_SCENE_FRAMES} "
+               f"--max-points {cap}, max_keyframes "
+               f"{cfg.map.max_keyframes}, recycle_min_age = "
+               f"recycle_stale_age = {TURNOVER_AGE}, warm-up off",
+        frames=res.num_frames, keyframes=res.num_keyframes,
+        ate_m=res.ate_m, drift_pct=drift, mean_matches=res.mean_matches,
+        ba_runs=res.num_ba_runs, recoveries=diag["num_recoveries"],
+        total_new_points=res.total_new_points, max_points_capacity=cap,
+        loop_checks=[c["frames"] for c in diag["loop_checks"]],
+        loop_closures=res.loop_closures, fps=res.fps,
+        peak_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        recycling_passes=rows, launches=launches, expected_launches=want,
+        render_s=render_s, run_wall_s=wall,
+        num_new_points=o.num_new_points.tolist())
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 11: front-end training at flagship width
 
 def _grads(torch, module):
@@ -2425,7 +2625,7 @@ def main() -> int:
         print(f"phase 10: multi-stream tracking, {len(MS_OFFSETS)} streams "
               f"x {MS_CHUNKS} chunks with BA, then {MS_BIG} streams x 1 chunk "
               f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
-        ms_launches = run_multistream(torch, dev, details, *slice_args)
+        run_multistream(torch, dev, details, *slice_args)
         print(f"phase 11: front-end training at flagship width, "
               f"{TRAIN_STEPS} steps of each trainer, the matcher's gradient "
               f"through the kernel, descent, the save_params round trip "
@@ -2436,31 +2636,35 @@ def main() -> int:
               f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
         run_entry_points(torch, dev, details, cfg, sp, slice_args[2], stack,
                          slice_map)
+        print(f"phase 13: point-table turnover at flagship width, the long "
+              f"run's scene, {TURNOVER_FRAMES} frames into a "
+              f"{TURNOVER_MAX_POINTS}-point table "
+              f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
+        path_launches = run_turnover(torch, dev, details)
         details["wall_s"] = time.perf_counter() - t_start
         print(f"all phases passed [{details['wall_s']:.0f} s]", flush=True)
 
         kernels = []
-        S = len(MS_OFFSETS)
-        path = "phase 10 (multi-stream, a camera per stream)"
+        path = "phase 13 (the long run's scene, point-table turnover)"
         for name, rows, err, src, replaces, shape in (
                 ("attention", attn_rows, attn_err,
                  "gl_slam_tpu_torch/csrc/attention.cu",
                  "gl_slam_tpu/ops/attention.py:68",
-                 f"streams prologue {S}x"),
+                 f"prologue {CHUNK}x"),
                 ("assignment", asg_rows, asg_err,
                  "gl_slam_tpu_torch/csrc/assignment.cu",
                  "gl_slam_tpu/ops/assignment.py:128",
-                 f"streams prologue {S * CHUNK}x"),
+                 f"prologue {CHUNK}x"),
                 ("nms", nms_rows, nms_err,
                  "gl_slam_tpu_torch/csrc/nms.cu",
                  "gl_slam_tpu/ops/nms.py:86",
                  f"detector {CHUNK}x")):
-            # the shapes of this slice's path: the multi-stream prologue of
-            # S streams, and one stream's chunk extraction (groups of 1)
+            # the shapes of this slice's path: the chunk prologue's matcher
+            # and assignment, the chunk's extraction
             head = next(r for r in rows if r["shape"].startswith(shape))
             kernels.append(dict(
                 name=name, route="cuda", source=src, replaces=replaces,
-                launches=ms_launches[name], max_abs_err=err, ms=head["ms"],
+                launches=path_launches[name], max_abs_err=err, ms=head["ms"],
                 plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                 bound_by=head["bound_by"], library_ms=head["library_ms"],
                 path=path, shape=head["shape"]))

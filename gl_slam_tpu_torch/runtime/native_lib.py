@@ -3,19 +3,19 @@
 Counterpart of gl_slam_tpu/runtime/native_lib.py, with its names and
 signatures: `load`, `available`, `NativeLoader`, `decode_png`,
 `CovisGraph`. The port keeps its own sources (native/) and builds them
-into two libraries, so that the covisibility graph does not depend on
-libpng being present:
+into two libraries, each linking nothing but the C++ runtime:
 
-  * the loader, native/dataloader.cpp, linked with `-lpng -lz`;
-  * the covisibility graph, native/covis_graph.cpp, alone.
+  * the loader, native/dataloader.cpp, with its own PNG reader and
+    inflate, so it builds wherever g++ does (no libpng, no zlib);
+  * the covisibility graph, native/covis_graph.cpp.
 
 Each is built at first use with `g++ -O3 -std=c++17 -pthread` into
 `runtime/build/` (listed in .gitignore), under a name that carries a hash
 of its source and flags, so an edited source is rebuilt and a stale
 library is never loaded. A build writes a temporary file of its own and
 renames it into place, so several processes may build at once. A failed
-build, or a library that does not load here (built on a machine with a
-library this one lacks), is remembered for the process: `load()` then
+build, or a library that does not load here (built on another machine,
+for another C++ runtime), is remembered for the process: `load()` then
 returns None and `available()` False (the command line reads frames with
 PIL), while `CovisGraph` raises; `build_error()` gives the reason.
 
@@ -39,7 +39,7 @@ _SRC = os.path.join(_DIR, "native")
 BUILD_DIR = os.path.join(_DIR, "build")
 CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread"]
 # library -> (source, link flags)
-_LIBS = {"loader": ("dataloader.cpp", ["-lpng", "-lz"]),
+_LIBS = {"loader": ("dataloader.cpp", []),
          "covis": ("covis_graph.cpp", [])}
 
 _LOCK = threading.Lock()
@@ -134,8 +134,8 @@ def _load(name: str) -> Optional[ctypes.CDLL]:
                 return None
         try:
             lib = ctypes.CDLL(so)
-        except OSError as e:        # built elsewhere: a library it links
-            _FAILED[name] = str(e)  # (libpng) is missing on this machine
+        except OSError as e:        # built elsewhere, for a runtime this
+            _FAILED[name] = str(e)  # machine lacks
             return None
         (_bind_loader if name == "loader" else _bind_covis)(lib)
         _LOADED[name] = lib
@@ -144,7 +144,7 @@ def _load(name: str) -> Optional[ctypes.CDLL]:
 
 def load() -> Optional[ctypes.CDLL]:
     """Build (if needed) and load the PNG loader library; None if it
-    cannot be built here (no g++, or no libpng headers or library)."""
+    cannot be built here (no g++)."""
     return _load("loader")
 
 

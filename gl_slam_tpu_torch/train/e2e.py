@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import os
 import time
+import warnings
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -107,11 +108,16 @@ def load_tiny_subpix(ckpt_dir: str = "checkpoints", pair: bool = False,
 
 def render_stack(scene, n_frames: int, max_keypoints: int,
                  domain: str = "clean") -> np.ndarray:
-    """The first `n_frames` rendered frames, (n, H, W) float32."""
-    return np.stack([synthetic.render_frame(scene, i,
-                                            max_keypoints=max_keypoints,
-                                            domain=domain)
-                     for i in range(n_frames)]).astype(np.float32)
+    """The first `n_frames` rendered frames, (n, H, W) float32, written
+    frame by frame into one array (a 1000-frame flagship stack is 1.9 GB)."""
+    first = synthetic.render_frame(scene, 0, max_keypoints=max_keypoints,
+                                   domain=domain)
+    out = np.empty((n_frames,) + first.shape, np.float32)
+    out[0] = first
+    for i in range(1, n_frames):
+        out[i] = synthetic.render_frame(scene, i, max_keypoints=max_keypoints,
+                                        domain=domain)
+    return out
 
 
 def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
@@ -122,7 +128,11 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
                     diag_out: Optional[dict] = None,
                     ba_diag: bool = False, subpix=None,
                     domain: str = "clean",
-                    pnp_draws: Optional[Callable[[int], torch.Tensor]] = None
+                    pnp_draws: Optional[Callable[[int], torch.Tensor]] = None,
+                    warmup: bool = False,
+                    render_cache: Optional[str] = None,
+                    on_chunk: Optional[Callable[[int, ChunkedPipeline],
+                                                None]] = None
                     ) -> E2EResult:
     """Bootstrap on frames 0-1, then track whole chunks of `chunk` frames of
     `scene`, with a window BA pass every `ba_every` frames (rounded to whole
@@ -147,11 +157,31 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
     around it or None on the CPU). `subpix`: an optional sub-pixel head
     (load_*_subpix): a SubpixHead refines every detection, a PairSubpixHead
     the matched keypoints in every chunk; None keeps the centroid
-    refinement."""
+    refinement. `render_cache`: a .npy path; the rendered stack is read
+    from it when it exists (it must hold `n_frames` frames or more), else
+    rendered and saved there. `warmup` runs one chunk of the first frames,
+    a BA pass and a loop detection on a throwaway state before the timed
+    loop (ChunkedPipeline.warmup), so first-call set-up falls outside the
+    fps; neither changes the trajectory. `on_chunk(frames, pipe)` is called
+    after each tracked chunk with the frame count so far (inside the timed
+    loop: what it reads from the card costs fps)."""
     dev = resolve_device(device)
-    if stack is None:
+    if stack is None and render_cache is not None \
+            and os.path.exists(render_cache):
+        stack = np.load(render_cache)
+        if stack.shape[0] < n_frames:
+            raise ValueError(f"{render_cache} holds {stack.shape[0]} frames, "
+                             f"fewer than {n_frames}")
+    elif stack is None:
         stack = render_stack(scene, n_frames, cfg.frontend.max_keypoints,
                              domain=domain)
+        if render_cache is not None:
+            try:
+                np.save(render_cache, stack)
+            except OSError as e:        # a full disk costs the cache only
+                warnings.warn(f"render cache {render_cache} not written: {e}")
+                if os.path.exists(render_cache):
+                    os.remove(render_cache)
     pipe = ChunkedPipeline(cfg, scene.K, sp, lg, chunk=chunk,
                            ba_every=ba_every, seed=seed, device=dev,
                            draws=draws, pnp_draws=pnp_draws,
@@ -162,6 +192,9 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
     pipe.bootstrap_from_images(stack[0], stack[1],
                                float(np.linalg.norm(c1 - c0)))
     frames = torch.from_numpy(stack[2:n_frames]).to(dev)
+    del stack
+    if warmup:
+        pipe.warmup(frames[:chunk])
 
     pipe.finish()
     t0 = time.perf_counter()
@@ -169,6 +202,8 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
     while start + chunk <= n_frames:
         pipe.track_chunk(frames[start - 2:start - 2 + chunk], start)
         start += chunk
+        if on_chunk is not None:
+            on_chunk(start, pipe)
     pipe.finish()
     wall = time.perf_counter() - t0
 

@@ -16,8 +16,8 @@ Counterpart of scripts/eval_native_loader.py on the PyTorch/CUDA port:
      repo root by default). tests/test_torch_eval_reports.py holds it to
      the bounds of tests/test_runtime.py's native-loader eval.
 
-It refuses to run where the native loader does not build (no g++, or no
-libpng headers and library): the report is evidence for that loader.
+It refuses to run where the native loader does not build (no g++): the
+report is evidence for that loader.
 
     python scripts/eval_native_loader_torch.py           # on the card
     python scripts/eval_native_loader_torch.py --device cpu --frames 12

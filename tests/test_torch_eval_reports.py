@@ -21,8 +21,12 @@ card by its script; a test skips while its report is absent.
     card's name and power limit stand in the report;
   * NATIVE_LOADER_EVAL_TORCH.json (scripts/eval_native_loader_torch.py):
     the bounds of tests/test_runtime.py::test_native_loader_eval_bounds,
-    every frame delivered by the native loader, from an NVIDIA card. It
-    waits for a card whose machine has libpng (ROADMAP.md).
+    every frame delivered by the native loader, from an NVIDIA card;
+  * LONGRUN_TORCH.json (scripts/longrun_learned_torch.py --preset flagship
+    --frames 1000): the bounds of tests/test_longrun.py (at least 990
+    frames, keyframes >= 0.95 x frames, drift <= 8 %, the point table
+    turned over: capacity <= 0.5 x total_new_points and total_new_points >
+    1.5 x capacity), from an NVIDIA card.
 """
 
 import json
@@ -116,3 +120,15 @@ def test_native_loader_eval_torch_report_bounds():
     assert rep["frames_rejected"] <= 2, rep
     assert rep["ate_rmse_m"] <= 0.5, rep
     assert rep["mean_matches"] > 300, rep
+
+
+def test_longrun_torch_report_bounds():
+    rep = _report("LONGRUN_TORCH.json", "longrun_learned_torch.py "
+                  "--preset flagship --frames 1000")
+    assert rep["card"].startswith("NVIDIA"), rep["card"]
+    assert rep["preset"] == "flagship", rep
+    assert rep["frames"] >= 990, rep
+    assert rep["keyframes"] >= 0.95 * rep["frames"], rep
+    assert rep["drift_pct"] <= 8.0, rep
+    assert rep["max_points_capacity"] <= 0.5 * rep["total_new_points"], rep
+    assert rep["total_new_points"] > 1.5 * rep["max_points_capacity"], rep

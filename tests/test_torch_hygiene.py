@@ -63,6 +63,7 @@ def test_scan_sees_the_package():
                    os.path.join("models", "classical.py")):
         assert os.path.join("gl_slam_tpu_torch", module) in names
     for script in ("eval_flagship_torch.py", "eval_loopclose_torch.py",
+                   "longrun_learned_torch.py",
                    "train_frontend_torch.py",
                    "train_pair_subpix_tiny_torch.py"):
         assert os.path.join("scripts", script) in names

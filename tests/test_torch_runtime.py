@@ -4,6 +4,15 @@ package's, on the CPU.
   * `decode_png` and `NativeLoader` of both packages on the same PNG files
     (8-bit gray, RGB, RGBA, palette, 16-bit gray, 1-bit; cropped and
     padded to other sizes): equal bit for bit;
+  * the port's own PNG reader (no libpng, no zlib) against the JAX
+    loader's libpng on PNG files this file writes with numpy and Python's
+    zlib: each filter type, stored / fixed-Huffman / level-9 deflate, IDAT
+    split over several chunks, every colour type and depth: equal bit for
+    bit; a corrupted CRC, a corrupted Adler-32 and truncated files are
+    refused by both; an interlaced file and a colour file with gAMA, sRGB
+    or cHRM are refused by the port (the JAX loader's output is then not
+    the image), and a palette file with tRNS gives libpng's (gray, alpha)
+    rows, as in JAX;
   * `CovisGraph` of both on random keyframe / point tables from a numpy
     seed: `num_edges`, `query` and `points_of` equal, for several seeds
     and edge thresholds;
@@ -23,8 +32,10 @@ import contextlib
 import io
 import json
 import os
+import struct
 import threading
 import time
+import zlib
 
 import numpy as np
 import pytest
@@ -65,8 +76,8 @@ def pngs(tmp_path_factory):
 
 def test_native_libraries_build_apart():
     """The loader and the covisibility graph build into two libraries
-    under the port's git-ignored build directory; only the loader links
-    libpng."""
+    under the port's git-ignored build directory; neither links a
+    library (the loader reads PNG itself: no png.h, no zlib.h)."""
     assert native_lib.available()
     native_lib.CovisGraph(1)
     for name in ("loader", "covis"):
@@ -74,15 +85,17 @@ def test_native_libraries_build_apart():
         assert os.path.exists(path)
         assert os.path.dirname(path) == native_lib.BUILD_DIR
         assert "gl_slam_tpu_torch" in path.replace(os.sep, "/").split("/")
-    assert "-lpng" in native_lib._LIBS["loader"][1]
-    assert native_lib._LIBS["covis"][1] == []
+        assert native_lib._LIBS[name][1] == []
+    with open(os.path.join(native_lib._SRC, "dataloader.cpp")) as f:
+        includes = [ln for ln in f if ln.startswith("#include")]
+    assert not [ln for ln in includes if "png" in ln or "zlib" in ln]
 
 
 def test_a_library_that_does_not_load_is_unavailable(tmp_path,
                                                      monkeypatch):
-    """A library built on another machine may link a library this one
-    lacks (libpng): it is then unavailable, with the reason, as a failed
-    build is; the command line reads with PIL and the graph raises."""
+    """A library built on another machine may not load on this one: it is
+    then unavailable, with the reason, as a failed build is; the command
+    line reads with PIL and the graph raises."""
     bogus = tmp_path / "libglslam_bogus.so"
     bogus.write_bytes(b"not a shared object")
     monkeypatch.setattr(native_lib, "library_path", lambda name: str(bogus))
@@ -107,13 +120,273 @@ def test_decode_png_equals_jax(pngs, size):
     assert native_lib.decode_png(pngs[0] + ".missing", *size) is None
 
 
+# ---------------------------------------------------------------------------
+# PNG files written here: numpy rows, Python's zlib, chunks with CRC-32
+
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _chunk(tag, data):
+    body = tag + data
+    return (struct.pack(">I", len(data)) + body
+            + struct.pack(">I", zlib.crc32(body)))
+
+
+def _scanlines(px, depth):
+    """(h, w, c) samples -> (h, rowbytes) packed, big-endian, MSB first."""
+    h, w, c = px.shape
+    if depth == 16:
+        return px.astype(">u2").reshape(h, w * c).view(np.uint8)
+    flat = px.reshape(h, w * c).astype(np.uint8)
+    if depth == 8:
+        return flat
+    per = 8 // depth
+    flat = np.pad(flat, ((0, 0), (0, -flat.shape[1] % per)))
+    flat = flat.reshape(h, -1, per)
+    out = np.zeros(flat.shape[:2], np.uint8)
+    for k in range(per):
+        out |= (flat[:, :, k] << (8 - depth * (k + 1))).astype(np.uint8)
+    return out
+
+
+def _filtered(rows, bpp, filters):
+    """Each row behind its filter byte, filter type filters[y % len]."""
+    out, prev = [], np.zeros(rows.shape[1], np.int32)
+    for y, r in enumerate(rows.astype(np.int32)):
+        f = filters[y % len(filters)]
+        a = np.concatenate([np.zeros(bpp, np.int32), r[:-bpp]])[:len(r)]
+        c = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])[:len(r)]
+        b = prev
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, b, c))
+        pred = [0, a, b, (a + b) // 2, paeth][f]
+        out.append(bytes([f]) + ((r - pred) & 255).astype(np.uint8).tobytes())
+        prev = r
+    return b"".join(out)
+
+
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def png_file(px, depth, color, filters=(0,), deflate="default", idat=1,
+             plte=None, trns=None, interlace=False, before=()):
+    """The bytes of a PNG of samples `px` (h, w, channels): `deflate`
+    "stored" (level 0), "fixed" (Z_FIXED), "best" (level 9) or zlib's
+    default; the stream cut into `idat` IDAT chunks (or one a byte with
+    "bytes"); `before`: (tag, data) chunks ahead of PLTE."""
+    bits = depth * _CHANNELS[color]
+    bpp = max(1, bits // 8)
+    if interlace:
+        raw = b"".join(
+            _filtered(_scanlines(px[ys::dy, xs::dx], depth), bpp, filters)
+            for xs, ys, dx, dy in _ADAM7
+            if px[ys::dy, xs::dx].size)
+    else:
+        raw = _filtered(_scanlines(px, depth), bpp, filters)
+    if deflate == "fixed":
+        co = zlib.compressobj(9, zlib.DEFLATED, 15, 9, zlib.Z_FIXED)
+        z = co.compress(raw) + co.flush()
+    else:
+        z = zlib.compress(raw, {"stored": 0, "best": 9}.get(deflate, -1))
+    h, w = px.shape[:2]
+    out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, color, 0, 0, int(interlace)))
+    for tag, data in before:
+        out += _chunk(tag, data)
+    if plte is not None:
+        out += _chunk(b"PLTE", np.asarray(plte, np.uint8).tobytes())
+    if trns is not None:
+        out += _chunk(b"tRNS", bytes(trns))
+    parts = len(z) if idat == "bytes" else idat
+    cuts = [len(z) * k // parts for k in range(parts + 1)]
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        out += _chunk(b"IDAT", z[a:b])
+    return out + _chunk(b"IEND", b"")
+
+
+# every colour type at every depth PNG allows
+KINDS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1),
+         (3, 2), (3, 4), (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+
+
+def _image(color, depth, rng, h=13, w=21):
+    """Samples, and a palette for colour type 3: random values, some pixels
+    gray (R = G = B) and a smooth ramp in the last rows."""
+    c = _CHANNELS[color]
+    px = rng.integers(0, 1 << depth, (h, w, c))
+    px[-3:] = ((np.arange(w)[None, :, None] + np.arange(3)[:, None, None])
+               % (1 << depth))
+    if c >= 3:
+        px[::3, :, 1] = px[::3, :, 0]
+        px[::3, :, 2] = px[::3, :, 0]
+    plte = None
+    if color == 3:
+        plte = rng.integers(0, 256, (1 << depth, 3))
+        plte[::2, 1] = plte[::2, 0]
+        plte[::2, 2] = plte[::2, 0]
+    return px, plte
+
+
+def _both(path, h, w):
+    return native_lib.decode_png(path, h, w), j_native.decode_png(path, h, w)
+
+
+WRITTEN = ([("filter", f) for f in range(5)]
+           + [("deflate", d) for d in ("stored", "fixed", "best")]
+           + [("idat", n) for n in (3, "bytes")]
+           + [("filters", (0, 1, 2, 3, 4))])
+
+
+@pytest.mark.parametrize("case", WRITTEN, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_decode_written_png_equals_jax(case, tmp_path):
+    """Every colour type and depth, written with one filter type on every
+    row, one deflate mode, the stream split over IDAT chunks, or the five
+    filters in turn: the port's reader equals JAX's libpng bit for bit,
+    at the file's size, cropped and padded."""
+    what, value = case
+    rng = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    kw = {"filter": dict(filters=(value,)), "deflate": dict(deflate=value),
+          "idat": dict(idat=value), "filters": dict(filters=value)}[what]
+    for color, depth in KINDS:
+        px, plte = _image(color, depth, rng)
+        path = str(tmp_path / f"{color}_{depth}.png")
+        with open(path, "wb") as f:
+            f.write(png_file(px, depth, color, plte=plte, **kw))
+        for size in ((13, 21), (9, 30), (17, 8)):
+            got, ref = _both(path, *size)
+            assert ref is not None and got is not None, (path, size)
+            np.testing.assert_array_equal(got, ref, err_msg=f"{path} {size}")
+
+
+def test_native_loader_on_written_pngs_equals_jax(tmp_path):
+    paths = []
+    rng = np.random.default_rng(5)
+    for i, (color, depth) in enumerate(KINDS):
+        px, plte = _image(color, depth, rng)
+        paths.append(str(tmp_path / f"{i:06d}.png"))
+        with open(paths[-1], "wb") as f:
+            f.write(png_file(px, depth, color, filters=(0, 1, 2, 3, 4),
+                             plte=plte, idat=2))
+    got = list(native_lib.NativeLoader(paths, 13, 21, depth=2, threads=3))
+    ref = list(j_native.NativeLoader(paths, 13, 21, depth=2, threads=1))
+    assert [i for i, _ in got] == [i for i, _ in ref] == list(range(15))
+    for (_, a), (_, b) in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+def _corrupt(good, how, rng):
+    """`good` (the bytes of a written PNG) damaged: one bit of a chunk's
+    CRC (IHDR, PLTE, IDAT, IEND), of the zlib stream's Adler-32 (the CRC
+    fixed up), or the file cut short."""
+    b = bytearray(good)
+    at, chunks = 8, []
+    while at < len(b):
+        n = struct.unpack(">I", b[at:at + 4])[0]
+        chunks.append((bytes(b[at + 4:at + 8]), at, n))
+        at += 12 + n
+    if how.startswith("crc-"):
+        tag = how[4:].encode()
+        _, at, n = next(c for c in chunks if c[0] == tag)
+        b[at + 8 + n + int(rng.integers(0, 4))] ^= 1 << int(rng.integers(8))
+    elif how == "adler":
+        _, at, n = [c for c in chunks if c[0] == b"IDAT"][-1]
+        b[at + 8 + n - 1 - int(rng.integers(0, 4))] ^= 1 << int(
+            rng.integers(8))
+        crc = zlib.crc32(bytes(b[at + 4:at + 8 + n]))
+        b[at + 8 + n:at + 12 + n] = struct.pack(">I", crc)
+    else:                                   # cut before IEND ends
+        b = b[:int(how[4:]) * (len(b) - 1) // 4]
+    return bytes(b)
+
+
+@pytest.mark.parametrize("how", ["crc-IHDR", "crc-PLTE", "crc-IDAT",
+                                 "crc-IEND", "adler", "cut-1", "cut-2",
+                                 "cut-3", "cut-4"])
+def test_damaged_png_is_refused_like_jax(how, tmp_path):
+    """A file libpng stops on is refused by the port's reader too, so the
+    loader skips that frame; here each colour type once."""
+    rng = np.random.default_rng(zlib.crc32(how.encode()))
+    for color, depth in ((0, 8), (2, 16), (3, 4), (6, 8)):
+        px, plte = _image(color, depth, rng)
+        good = png_file(px, depth, color, plte=plte, idat=2)
+        if how == "crc-PLTE" and plte is None:
+            continue
+        path = str(tmp_path / f"{color}.png")
+        with open(path, "wb") as f:
+            f.write(_corrupt(good, how, rng))
+        got, ref = _both(path, 13, 21)
+        assert ref is None, (how, color)
+        assert got is None, (how, color)
+        paths = [path, path.replace(".png", "_good.png")]
+        with open(paths[1], "wb") as f:
+            f.write(good)
+        assert [i for i, _ in native_lib.NativeLoader(paths, 13, 21)] == \
+            [i for i, _ in j_native.NativeLoader(paths, 13, 21)] == [1]
+
+
+def test_interlace_trns_and_colour_space_choices(tmp_path):
+    """Where the JAX loader's output is not the image, the port refuses
+    the file: an interlaced (Adam7) file, which JAX reads as if its pass
+    rows were image rows, and a colour file with gAMA, sRGB or cHRM, which
+    libpng turns to gray through gamma tables or the chunk's coefficients
+    (a gray file with gAMA decodes as without it, in both). A palette file
+    with tRNS is read as JAX reads it: libpng expands it to RGBA and the
+    alpha channel stays, so a row holds (gray, alpha) pairs."""
+    rng = np.random.default_rng(9)
+
+    def write(name, data):
+        path = str(tmp_path / name)
+        with open(path, "wb") as f:
+            f.write(data)
+        return path
+
+    px, _ = _image(0, 8, rng)
+    plain = write("plain.png", png_file(px, 8, 0))
+    inter = write("adam7.png", png_file(px, 8, 0, interlace=True))
+    got, ref = _both(inter, 13, 21)
+    assert got is None
+    assert ref is not None and not np.array_equal(ref, _both(plain, 13, 21)[1])
+
+    rgb, _ = _image(2, 8, rng)
+    for tag, data in ((b"gAMA", struct.pack(">I", 45455)),
+                      (b"sRGB", b"\x00"),
+                      (b"cHRM", struct.pack(">8I", 31270, 32900, 50000,
+                                            30000, 30000, 60000, 15000,
+                                            6000))):
+        path = write(f"rgb_{tag.decode()}.png",
+                     png_file(rgb, 8, 2, before=[(tag, data)]))
+        got, ref = _both(path, 13, 21)
+        assert got is None and ref is not None, tag
+        assert not np.array_equal(ref, _both(write(
+            "rgb.png", png_file(rgb, 8, 2)), 13, 21)[1]), tag
+    gray_gamma = write("gray_gAMA.png", png_file(
+        px, 8, 0, before=[(b"gAMA", struct.pack(">I", 45455))]))
+    got, ref = _both(gray_gamma, 13, 21)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, _both(plain, 13, 21)[0])
+
+    idx, plte = _image(3, 4, rng)
+    trns = [0, 128, 255, 7]
+    path = write("trns.png", png_file(idx, 4, 3, plte=plte, trns=trns))
+    got, ref = _both(path, 13, 21)
+    np.testing.assert_array_equal(got, ref)
+    alpha = np.array(trns + [255] * 12, np.float32)[idx[:, :10, 0]] / 255
+    np.testing.assert_allclose(got[:, 1:21:2], alpha, atol=1e-6)
+
+
 @pytest.mark.parametrize("depth,threads", [(1, 1), (2, 3), (4, 2)])
 def test_native_loader_equals_jax(pngs, depth, threads):
     native_lib.reset_frame_count()
     got = list(native_lib.NativeLoader(pngs, 40, 60, depth=depth,
                                        threads=threads))
-    ref = list(j_native.NativeLoader(pngs, 40, 60, depth=depth,
-                                     threads=threads))
+    # the JAX loader delivers in path order whatever its thread count, and
+    # with more than one worker its admission can stall for good (see
+    # test_in_order_frame_is_always_admitted): one worker reads the same
+    # frames
+    ref = list(j_native.NativeLoader(pngs, 40, 60, depth=depth, threads=1))
     assert [i for i, _ in got] == list(range(len(pngs)))
     assert [i for i, _ in got] == [i for i, _ in ref]
     for (_, a), (_, b) in zip(got, ref):
