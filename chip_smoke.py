@@ -132,6 +132,15 @@ sets x 2 heads, 2048 x 2048; 8 maps of 376 x 1240 at radius 3).
      tests/test_longrun.py's bounds, every frame kept, 0 recoveries, the
      launch counts the path implies; prints the free slots after each BA
      pass and how many of them the eviction under pressure freed.
+ 14. the measurement entry points: bench_torch.py's cells (the port of
+     bench.py: seed-0 scene of 14000 landmarks, trained flagship weights,
+     pair head, BA after every chunk of 8, a loop detection every 20
+     frames) at flagship width with BENCH_CHUNKS timed chunk each, the
+     multi-stream cell at BENCH_STREAMS streams: every fps finite and
+     positive, the JSON line carrying every key of bench.py's, each cell's
+     kernel launches (warm-up included) equal to what its chunks,
+     re-observation mode and detections imply; then
+     scripts/profile_stages_torch.py's 15 stages with 2 calls a stage.
 The line before the last is the `kernels` JSON (the three kernels at the
 shapes of phase 13's run, with its launches); the last line is the device
 JSON. Details go to chiprun_out/chip_smoke.json.
@@ -214,25 +223,38 @@ TURNOVER_FRAMES = 66
 TURNOVER_MAX_POINTS = 6144
 TURNOVER_MAX_KEYFRAMES = 1024
 TURNOVER_AGE = 21
+# The measurement entry points (phase 14): bench_torch.py's cells with one
+# timed chunk each over the first BENCH_FRAMES distinct frames of its
+# scene, the multi-stream cell at 2 streams; the stage profile with 2
+# calls a stage (and a block).
+BENCH_CHUNKS, BENCH_STREAMS, BENCH_FRAMES, STAGE_CALLS = 1, 2, 24, 2
 
 
-def expected_launches(n_chunks, reobs_mode="separate"):
+def expected_launches(n_chunks, reobs_mode="separate", reobs_points=M_REOBS,
+                      bootstrap=True):
     """Kernel launches of a bootstrap plus `n_chunks` chunks. Matcher passes:
     the bootstrap's and each chunk prologue's (18 attention calls: 9 layers
     x self + cross), and the re-observation passes of each frame: two in
     the "separate" mode (72: 9 layers x 2 passes x (2 self + 2 cross, per
     set at its own size)), one in the "merged" and "batched" modes (36: the
-    batched mode's two sets ride a leading axis of the same calls); one
+    batched mode's two sets ride a leading axis of the same calls), none
+    in "mutual_nn" (re-observation by mutual nearest neighbours); one
     assignment call per matcher pass; one fused NMS launch per extraction
-    call (bootstrap and each chunk). The PnP tracker and motion gating
-    launch what the separate mode does (the chunk's recovery branch
-    matches by mutual nearest neighbours)."""
+    call (bootstrap and each chunk). Re-observation sets of
+    `reobs_points` = N points (the bench's strict cells) are stacked with
+    the frame's, 18 attention calls a pass. The PnP tracker and motion
+    gating launch what the separate mode does (the chunk's recovery branch
+    matches by mutual nearest neighbours). `bootstrap=False`: the chunks
+    alone (bench_torch.py's cells start from an empty map)."""
     tracked = n_chunks * CHUNK
-    passes = 2 if reobs_mode == "separate" else 1
-    return {"attention": 18 + n_chunks * 18 + tracked * 36 * passes,
-            "assignment": ASSIGN_KERNELS_PER_CALL * (1 + n_chunks
+    passes = {"separate": 2, "merged": 1, "batched": 1,
+              "mutual_nn": 0}[reobs_mode]
+    per_pass = 18 if reobs_points == N_KPTS else 36
+    boot = 1 if bootstrap else 0
+    return {"attention": 18 * (boot + n_chunks) + tracked * per_pass * passes,
+            "assignment": ASSIGN_KERNELS_PER_CALL * (boot + n_chunks
                                                      + tracked * passes),
-            "nms": 1 + n_chunks}
+            "nms": boot + n_chunks}
 
 
 # The per-frame route (phase 8): the command line's NMS radius (3) on the
@@ -2244,6 +2266,90 @@ def run_turnover(torch, dev, details):
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the measurement entry points
+
+def run_bench(torch, dev, details):
+    """bench_torch.py's cells at flagship width, each held to finite,
+    positive fps and to the launches its warm-up and timed chunks,
+    re-observation mode and detections imply (no cell falls back to a
+    plain version), its JSON line to bench.py's keys; then the stage
+    profile of scripts/profile_stages_torch.py with STAGE_CALLS calls a
+    stage."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import bench_torch as bt
+    import profile_stages_torch as pst
+
+    from gl_slam_tpu_torch.config import flagship_config
+    from gl_slam_tpu_torch.io import synthetic
+    from gl_slam_tpu_torch.ops import _build
+    from gl_slam_tpu_torch.train import e2e
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(ROOT, "checkpoints")
+    bt.flagship_checkpoints(ckpt)
+    cfgs = bt.variants(flagship_config(bt.H, bt.W))
+    sp, lg = e2e.load_flagship_frontend(ckpt, device=dev)
+    ks = e2e.load_flagship_subpix(ckpt, pair=True, device=dev)
+    scene = synthetic.make_scene(num_landmarks=bt.LANDMARKS,
+                                 num_frames=bt.N_FRAMES + 2, height=bt.H,
+                                 width=bt.W, desc_dim=bt.D, seed=0)
+    b = bt.setup(cfgs["relaxed"], sp, lg, ks, scene, dev,
+                 n_frames=BENCH_FRAMES)
+    print(f"  setup (weights + {BENCH_FRAMES + 2} rendered frames) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def counted(run, want, what):
+        _build.reset_launch_counts()
+        fps, timed = run()
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        print(f"  {what}: {fps:.3f} fps, launches {launches} (expected "
+              f"{want}; timed window {timed})", flush=True)
+        check(math.isfinite(fps) and fps > 0, f"{what}: fps {fps}")
+        check(launches == want, f"{what}: launches {launches} != {want}")
+        return dict(fps=fps, launches=launches, timed_launches=timed)
+
+    relaxed = cfgs["relaxed"]
+    cells = {bt.MULTI_KEY: counted(
+        lambda: bt.run_multi(b, BENCH_CHUNKS, BENCH_STREAMS),
+        expected_launches(BENCH_STREAMS * (1 + BENCH_CHUNKS), "separate",
+                          relaxed.map.covis_max_points, bootstrap=False),
+        f"{bt.MULTI_KEY} ({BENCH_STREAMS} streams)")}
+    detections = 1 + sum(det for *_, det in bt.single_schedule(
+        BENCH_CHUNKS, len(b.chunks)))
+    for key, name, reobs_lg, _ in bt.SINGLE_CELLS:
+        c = cfgs[name]
+        want = expected_launches(
+            1 + BENCH_CHUNKS, c.map.reobs_mode if reobs_lg else "mutual_nn",
+            c.map.covis_max_points, bootstrap=False)
+        want["attention"] += ATTN_PER_DETECTION * detections
+        want["assignment"] += ASSIGN_KERNELS_PER_CALL * detections
+        cells[key] = counted(
+            lambda c=c, r=reobs_lg: bt.run_single(b, r, BENCH_CHUNKS, c),
+            want, f"{key} ({name})")
+    line = bt.result_line({k: v["fps"] for k, v in cells.items()}, cfgs,
+                          streams=BENCH_STREAMS)
+    bt.check_line(line)
+    print(f"  bench line: {json.dumps(line)}", flush=True)
+
+    t1 = time.perf_counter()
+    stages = pst.run_stages(dev, sp, lg, n=STAGE_CALLS, ba_n=STAGE_CALLS)
+    check(len(stages) == 15, f"{len(stages)} stages profiled, expected 15")
+    # busy_ms is reported, not held: after the earlier phases' profiles,
+    # torch.profiler hands back some short sessions without their device
+    # records (0 ms), though the same stages read steadily in a fresh
+    # process (scripts/profile_stages_torch.py)
+    for name, row in stages.items():
+        check(all(math.isfinite(row[k]) and row[k] > 0
+                  for k in ("host_ms", "device_ms"))
+              and row["launches"] > 0, f"stage {name}: {row}")
+    print(f"  stage profile {time.perf_counter() - t1:.1f} s; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    details["bench"] = dict(cells=cells, line=line, stages=stages,
+                            phase_wall_s=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
 # Phase 11: front-end training at flagship width
 
 def _grads(torch, module):
@@ -2641,6 +2747,10 @@ def main() -> int:
               f"{TURNOVER_MAX_POINTS}-point table "
               f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
         path_launches = run_turnover(torch, dev, details)
+        print(f"phase 14: bench_torch.py's cells ({BENCH_CHUNKS} timed "
+              f"chunk each, {BENCH_STREAMS} streams) and the stage profile "
+              f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
+        run_bench(torch, dev, details)
         details["wall_s"] = time.perf_counter() - t_start
         print(f"all phases passed [{details['wall_s']:.0f} s]", flush=True)
 

@@ -120,6 +120,29 @@ def render_stack(scene, n_frames: int, max_keypoints: int,
     return out
 
 
+def load_or_render(scene, n_frames: int, max_keypoints: int,
+                   render_cache: Optional[str] = None,
+                   domain: str = "clean") -> np.ndarray:
+    """`render_stack`, read from the .npy `render_cache` when it exists (it
+    must hold `n_frames` frames or more; it may hold more), else rendered
+    and saved there (a write that fails costs the cache only)."""
+    if render_cache is not None and os.path.exists(render_cache):
+        stack = np.load(render_cache)
+        if stack.shape[0] < n_frames:
+            raise ValueError(f"{render_cache} holds {stack.shape[0]} frames, "
+                             f"fewer than {n_frames}")
+        return stack
+    stack = render_stack(scene, n_frames, max_keypoints, domain=domain)
+    if render_cache is not None:
+        try:
+            np.save(render_cache, stack)
+        except OSError as e:
+            warnings.warn(f"render cache {render_cache} not written: {e}")
+            if os.path.exists(render_cache):
+                os.remove(render_cache)
+    return stack
+
+
 def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
                     chunk: int = 5, ba_every: int = 3, device=None,
                     seed: int = 0,
@@ -166,22 +189,9 @@ def run_learned_e2e(sp, lg, scene, cfg: SLAMConfig, n_frames: int,
     after each tracked chunk with the frame count so far (inside the timed
     loop: what it reads from the card costs fps)."""
     dev = resolve_device(device)
-    if stack is None and render_cache is not None \
-            and os.path.exists(render_cache):
-        stack = np.load(render_cache)
-        if stack.shape[0] < n_frames:
-            raise ValueError(f"{render_cache} holds {stack.shape[0]} frames, "
-                             f"fewer than {n_frames}")
-    elif stack is None:
-        stack = render_stack(scene, n_frames, cfg.frontend.max_keypoints,
-                             domain=domain)
-        if render_cache is not None:
-            try:
-                np.save(render_cache, stack)
-            except OSError as e:        # a full disk costs the cache only
-                warnings.warn(f"render cache {render_cache} not written: {e}")
-                if os.path.exists(render_cache):
-                    os.remove(render_cache)
+    if stack is None:
+        stack = load_or_render(scene, n_frames, cfg.frontend.max_keypoints,
+                               render_cache, domain)
     pipe = ChunkedPipeline(cfg, scene.K, sp, lg, chunk=chunk,
                            ba_every=ba_every, seed=seed, device=dev,
                            draws=draws, pnp_draws=pnp_draws,

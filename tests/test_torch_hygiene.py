@@ -1,11 +1,11 @@
 """The port stands alone and runs on the card unless told otherwise.
 
-gl_slam_tpu_torch/ (its native runtime included), chip_smoke.py, the
-port's scripts (scripts/*_torch.py) and examples (examples/*_torch.py)
-must import no JAX, no Flax and nothing of the JAX package (the card's
-machine has neither), the native runtime must build from the port's own
-sources, and the port's entry points must refuse to fall back to the CPU
-silently.
+gl_slam_tpu_torch/ (its native runtime included), chip_smoke.py,
+bench_torch.py, the port's scripts (scripts/*_torch.py) and examples
+(examples/*_torch.py) must import no JAX, no Flax and nothing of the JAX
+package (the card's machine has neither), the native runtime must build
+from the port's own sources, and the port's entry points must refuse to
+fall back to the CPU silently.
 """
 
 import ast
@@ -21,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gl_slam_tpu")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "bench_torch.py")]
     scripts = os.path.join(ROOT, "scripts")
     files += [os.path.join(scripts, n) for n in sorted(os.listdir(scripts))
               if n.endswith("_torch.py")]
@@ -53,6 +54,7 @@ def test_port_imports_no_jax(path):
 def test_scan_sees_the_package():
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert "chip_smoke.py" in names
+    assert "bench_torch.py" in names
     assert os.path.join("gl_slam_tpu_torch", "slam", "fused.py") in names
     assert os.path.join("gl_slam_tpu_torch", "slam", "loopclose.py") in names
     for module in ("cli.py", "metrics.py", "tracing.py",
@@ -65,7 +67,9 @@ def test_scan_sees_the_package():
     for script in ("eval_flagship_torch.py", "eval_loopclose_torch.py",
                    "longrun_learned_torch.py",
                    "train_frontend_torch.py",
-                   "train_pair_subpix_tiny_torch.py"):
+                   "train_pair_subpix_tiny_torch.py",
+                   "profile_stages_torch.py", "bench_diff_torch.py",
+                   "microbench_ops_torch.py"):
         assert os.path.join("scripts", script) in names
     assert os.path.join("gl_slam_tpu_torch", "train",
                         "frontend_train.py") in names
