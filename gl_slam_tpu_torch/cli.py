@@ -107,8 +107,12 @@ def _run_chunked(args) -> int:
     has the keys of the JAX CLI's chunked report, with their meaning:
     `frames_fed` counts the real frames, `frames_tracked` the trajectory's
     rows (keyframes), `frames_rejected` the frames not accepted, the gated
-    padding included, and `mean_matches` is over every tracked step."""
+    padding included, and `mean_matches` is over every tracked step.
+    `stages`, not in the JAX report, has the host time of each top-level
+    span (bootstrap, warm-up, chunk, BA pass, loop closing) in the
+    format of the per-frame route's."""
     from . import metrics as metrics_mod
+    from . import tracing
     from .checkpoint import export_kitti_trajectory
     from .config import flagship_config, micro_config
     from .device import resolve_device
@@ -145,9 +149,6 @@ def _run_chunked(args) -> int:
         c1 = -gt_R[first + 1].T @ gt_t[first + 1]
         gt_scale = float(np.linalg.norm(c1 - c0))
 
-    pipe.bootstrap_from_images(frame_fn(first), frame_fn(first + 1),
-                               gt_scale, frame_idx0=first)
-
     def chunk_images(i0, n=None):
         # n < chunk: the tail chunk, padded with copies of its last real
         # frame (gated off below); each real frame is read once
@@ -156,24 +157,29 @@ def _run_chunked(args) -> int:
                 for t in range(n)]
         return np.stack(real + [real[-1]] * (args.chunk - n))
 
-    i = first + 2
-    warm = None
-    if i + args.chunk <= last + 1:
-        warm = chunk_images(i)
-        pipe.warmup(warm)
-    t_start = time.time()
-    while i + args.chunk <= last + 1:
-        imgs = warm if (warm is not None and i == first + 2) \
-            else chunk_images(i)
-        pipe.track_chunk(imgs, i)
-        i += args.chunk
-    n_tail = last + 1 - i
-    if n_tail > 0:
-        gate = np.arange(args.chunk) < n_tail
-        pipe.track_chunk(chunk_images(i, n_tail), i, frame_gate=gate)
-        i += n_tail
-    pipe.finish()
-    elapsed = time.time() - t_start
+    with tracing.recording(syncs=False) as rec:
+        with tracing.span("bootstrap"):
+            pipe.bootstrap_from_images(frame_fn(first), frame_fn(first + 1),
+                                       gt_scale, frame_idx0=first)
+        i = first + 2
+        warm = None
+        if i + args.chunk <= last + 1:
+            warm = chunk_images(i)
+            with tracing.span("warmup"):
+                pipe.warmup(warm)
+        t_start = time.time()
+        while i + args.chunk <= last + 1:
+            imgs = warm if (warm is not None and i == first + 2) \
+                else chunk_images(i)
+            pipe.track_chunk(imgs, i)
+            i += args.chunk
+        n_tail = last + 1 - i
+        if n_tail > 0:
+            gate = np.arange(args.chunk) < n_tail
+            pipe.track_chunk(chunk_images(i, n_tail), i, frame_gate=gate)
+            i += n_tail
+        pipe.finish()
+        elapsed = time.time() - t_start
 
     R, t, fidx = pipe.trajectory()
     export_kitti_trajectory(os.path.join(args.out, "trajectory.txt"), R, t)
@@ -193,6 +199,7 @@ def _run_chunked(args) -> int:
         "loop_closures": pipe.num_loop_closures,
         "mean_matches": float(np.mean(outs.num_matches)) if outs is not None
         else 0.0,
+        "stages": rec.stages(),
     }
     c_gt = None
     if gt_R is not None:
@@ -247,8 +254,7 @@ def _per_frame_features(args, cfg, src, frame_fn, dev):
     descriptor sampling) with LightGlue and the fused assignment as the
     matcher of all three passes."""
     import torch
-    from torch.profiler import record_function
-
+    from . import tracing
     from .device import upload
 
     def image(i):
@@ -283,7 +289,7 @@ def _per_frame_features(args, cfg, src, frame_fn, dev):
 
     @torch.no_grad()
     def features(i):
-        with record_function("extract"):
+        with tracing.span("extract"):
             kpts, desc, valid = extract(image(i)[None])
         return kpts[0], desc[0], valid[0]
     return features, fused.build_matcher(cfg, lg)
@@ -301,7 +307,7 @@ def _run_per_frame(args) -> int:
     from .checkpoint import export_kitti_trajectory, save_state
     from .device import resolve_device
     from .slam.pipeline import TrackingPipeline
-    from .tracing import MetricsRecorder, StageTimer
+    from . import tracing
     from .viz.viewer import LiveViewer, MapSnapshot, render_topdown
 
     dev = resolve_device(args.device)
@@ -312,8 +318,7 @@ def _run_per_frame(args) -> int:
     os.makedirs(args.out, exist_ok=True)
 
     pipe = TrackingPipeline(cfg, K, matcher=matcher, device=dev)
-    rec = MetricsRecorder()
-    timer = StageTimer()
+    rec = tracing.MetricsRecorder()
     live = None
     if args.live_viz > 0:
         live = LiveViewer(os.path.join(args.out, "live"),
@@ -326,32 +331,33 @@ def _run_per_frame(args) -> int:
         c1 = -gt_R[first + 1].T @ gt_t[first + 1]
         gt_scale = float(np.linalg.norm(c1 - c0))
 
-    t_start = time.time()
-    f0, f1 = features(first), features(first + 1)
-    with timer.stage("bootstrap"):
-        pipe.bootstrap((*f0, first), (*f1, first + 1), gt_scale=gt_scale)
-    prev_idx = first + 1
-    n_gated = 0
-    steps = []
-    for i in range(first + 2, last + 1):
-        # ground-truth motion gate: skip near-static frames
-        if (cfg.runtime.use_gt_motion_gate and gate_fn is not None
-                and gt_R is not None
-                and gate_fn(prev_idx, i, cfg.runtime.gt_mag_filter,
-                            cfg.runtime.gt_rot_filter)):
-            n_gated += 1
-            continue
-        prev_idx = i
-        with timer.stage("features"):
-            f = features(i)
-        with timer.stage("track"):
-            steps.append((i, pipe.step(*f, i)))
+    with tracing.recording(syncs=False) as spans:
+        t_start = time.time()
+        f0, f1 = features(first), features(first + 1)
+        with tracing.span("bootstrap"):
+            pipe.bootstrap((*f0, first), (*f1, first + 1), gt_scale=gt_scale)
+        prev_idx = first + 1
+        n_gated = 0
+        steps = []
+        for i in range(first + 2, last + 1):
+            # ground-truth motion gate: skip near-static frames
+            if (cfg.runtime.use_gt_motion_gate and gate_fn is not None
+                    and gt_R is not None
+                    and gate_fn(prev_idx, i, cfg.runtime.gt_mag_filter,
+                                cfg.runtime.gt_rot_filter)):
+                n_gated += 1
+                continue
+            prev_idx = i
+            with tracing.span("features"):
+                f = features(i)
+            with tracing.span("track"):
+                steps.append((i, pipe.step(*f, i)))
+            if live is not None:
+                live.update(pipe.state.map, i)
+        pipe.finish()
         if live is not None:
-            live.update(pipe.state.map, i)
-    pipe.finish()
-    if live is not None:
-        live.close()
-    elapsed = time.time() - t_start
+            live.close()
+        elapsed = time.time() - t_start
 
     for i, out in steps:
         rec.record(i, num_matches=out.num_matches,
@@ -369,7 +375,7 @@ def _run_per_frame(args) -> int:
         "frames_gated": n_gated,
         "fps_incl_features": round(len(R) / elapsed, 2),
         "map": pipe.map_stats(),
-        "stages": timer.summary(),
+        "stages": spans.stages(("bootstrap", "features", "track")),
     }
     c_gt = None
     if gt_R is not None:

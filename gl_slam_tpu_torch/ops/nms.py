@@ -29,8 +29,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from .. import tracing
 from . import _build
 from .select import topk_stable
 
@@ -129,7 +129,7 @@ def detect_keypoints(heat: torch.Tensor, max_keypoints: int,
     valid (B,K)); per-row top-R then a global top-K when the map is much
     larger than K."""
     B, H, W = heat.shape
-    with record_function("extract.nms"):
+    with tracing.span("extract.nms"):
         supp = nms(heat, radius)
     per_row = min(max(W // (radius + 1) + 1, 8), W)
     if H * W > 4 * max_keypoints and per_row * H >= max_keypoints:

@@ -24,6 +24,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import SLAMConfig
 from ..device import resolve_device
 from ..slam import ba as ba_mod
@@ -176,9 +177,8 @@ class MultiStreamTracker:
         arrays or (S,) device tensors, which are not read back), then
         `R_cur` / `t_cur` re-anchored to each stream's last keyframe, as
         the JAX tracker does (no slot recycling, no re-anchoring of
-        `t_rel_norm`)."""
-        fk = self._per_stream_i32(first_kf)
-        win = self._per_stream_i32(window)
+        `t_rel_norm`). The pass is the span `backend.ba`, recorded
+        without a profiler range (`tracing.span`'s `profile=False`)."""
         cfg = self.cfg
 
         def one(K, st, f, w):
@@ -189,7 +189,9 @@ class MultiStreamTracker:
                                R_cur=_at(new_map.kf_R, idx, 1),
                                t_cur=_at(new_map.kf_t, idx, 1)), None
 
-        self._run(one, fk, win)
+        with tracing.span("backend.ba", streams=self.S, profile=False):
+            self._run(one, self._per_stream_i32(first_kf),
+                      self._per_stream_i32(window))
 
     def block(self):
         """Wait for every part's device to finish its queued work."""

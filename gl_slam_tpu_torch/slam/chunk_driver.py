@@ -64,8 +64,8 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import tracing
 from ..config import SLAMConfig
 from ..device import resolve_device, upload
 from . import ba as ba_mod
@@ -219,7 +219,7 @@ class ChunkedPipeline:
         first = torch.clamp_min(
             m.num_kf - (self._win_kf + cfg.ba.full_ba_overlap), 0)
         win = m.num_kf - first
-        with record_function("backend.ba"):
+        with tracing.span("backend.ba"):
             if self._ba_diag:
                 new_map, self._last_ba_diag = ba_mod.ba_step_diag(
                     cfg, K, m, first, win)
@@ -239,7 +239,7 @@ class ChunkedPipeline:
         st = st._replace(map=new_map, R_cur=R_last, t_cur=t_last,
                          t_rel_norm=step_ba)
         if cfg.map.recycle_enabled:
-            with record_function("backend.recycle"):
+            with tracing.span("backend.recycle"):
                 st = st._replace(map=recycle_free_slots(
                     st.map, cfg.map.recycle_min_age,
                     min(cfg.map.recycle_budget, cfg.map.max_points),
@@ -284,9 +284,10 @@ class ChunkedPipeline:
         # the essential RANSAC's draws, or under the PnP tracker the PnP's
         u, gumbel = (None, self.pnp_draw(self.chunk)) if self._pnp \
             else (self.draw(self.chunk), None)
-        self.state, outs, recovered = self.chunk_fn(
-            self.state, self._images(images), frame_idx0, u,
-            frame_gate=gate, pnp_gumbel=gumbel)
+        with tracing.span("chunk", streams=1, step=True, profile=False):
+            self.state, outs, recovered = self.chunk_fn(
+                self.state, self._images(images), frame_idx0, u,
+                frame_gate=gate, pnp_gumbel=gumbel)
         self.outputs.append(outs)
         self.recovery_frames += [frame_idx0 + i
                                  for i, r in enumerate(recovered) if r]
@@ -383,7 +384,9 @@ class ChunkedPipeline:
     def _dispatch_detect(self):
         """Issue one detection and start the copy of its verdict."""
         t0 = time.perf_counter()
-        det = self._detect_fn(self.state, self._loop_gumbel(self._frames))
+        with tracing.span("loop.detect"):
+            det = self._detect_fn(self.state,
+                                  self._loop_gumbel(self._frames))
         if det.ok.is_cuda:
             host_ok = torch.empty((), dtype=torch.bool, pin_memory=True)
             host_ok.copy_(det.ok, non_blocking=True)
@@ -416,9 +419,10 @@ class ChunkedPipeline:
                 event.synchronize()    # the work up to that check only
             if bool(host_ok):
                 t0 = time.perf_counter()
-                self.state = loopclose.close_loop(
-                    self.cfg, self.K, self.state, det, rt.pose_graph_window,
-                    target_kf=int(det.cur_kf) - 1)
+                with tracing.span("loop.close"):
+                    self.state = loopclose.close_loop(
+                        self.cfg, self.K, self.state, det,
+                        rt.pose_graph_window, target_kf=int(det.cur_kf) - 1)
                 self.num_loop_closures += 1
                 self.loop_events.append(dict(
                     applied_at_frame=self._frames,

@@ -36,8 +36,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import tracing
 from ..config import SLAMConfig
 from ..geometry import essential, pnp, projection, se3, triangulation
 from ..ops import match as match_ops
@@ -279,7 +279,7 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
     # 2. map re-observation through the last-W-keyframes window (in merged
     #    and batched mode it joins the pass after the pose prediction)
     if not one_pass:
-        with record_function("track.reobserve_window"):
+        with tracing.span("track.reobserve_window"):
             reob = reobserve.match_map_window(cfg, K, mstate, state.R_cur,
                                               state.t_cur, f,
                                               matcher=matcher)
@@ -294,7 +294,7 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
     else:
         ess = ess_result
         if ess is None:
-            with record_function("track.essential"):
+            with tracing.span("track.essential"):
                 ess = essential.estimate_essential(
                     K, uv0, uv1, pair, u,
                     threshold_px=g.essential_threshold_px,
@@ -318,7 +318,7 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
     n_assoc_a = _count(reobs_mpid >= 0)
     if one_pass:
         # (b)+(c) in one matcher call, seeded by (a) at the predicted pose
-        with record_function("track.reobserve"):
+        with tracing.span("track.reobserve"):
             if mode == "merged":
                 both = reobserve.match_unified(
                     cfg, K, mstate, R_pred, t_pred, f, seed_mpid=reobs_mpid,
@@ -338,7 +338,7 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
         n_assoc_b = _count(reobs_mpid >= 0) - n_assoc_a
         # (c) covisibility retrieval at the predicted pose
         if cfg.map.use_covis_retrieval:
-            with record_function("track.reobserve_covis"):
+            with tracing.span("track.reobserve_covis"):
                 cov = reobserve.match_covisible(
                     cfg, K, mstate, R_pred, t_pred, f, seed_mpid=reobs_mpid,
                     already_mpid=reobs_mpid, matcher=matcher)
@@ -359,7 +359,7 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
     if use_pnp:
         # absolute pose from PnP RANSAC on the 3D-2D set; its outliers
         # lose their association
-        with record_function("track.pnp"):
+        with tracing.span("track.pnp"):
             pr = pnp.solve_pnp_ransac(K, p3d, f.kpts, has3d, pnp_gumbel,
                                       threshold_px=g.pnp_threshold_px,
                                       num_hypotheses=g.pnp_hypotheses)
@@ -371,7 +371,7 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
     if run_pose_ba:
         R_cv, t_cv = se3.chain_relative(state.R_cur, state.t_cur,
                                         state.R_rel, state.t_rel)
-        with record_function("track.pose_lm"):
+        with tracing.span("track.pose_lm"):
             pb = pose_ba.pose_only_ba_multi(
                 K, torch.stack([R_init, state.R_cur, R_cv], -3),
                 torch.stack([t_init, state.t_cur, t_cv], -2), p3d, f.kpts,
@@ -407,7 +407,7 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
         reobs_mpid = torch.where(assoc_ok, reobs_mpid, -1)
         has3d = reobs_mpid >= 0
         if run_pose_ba and g.gate_refine_iters > 0:
-            with record_function("track.pose_lm"):
+            with tracing.span("track.pose_lm"):
                 pb2 = pose_ba.pose_only_ba(
                     K, R_cur, t_cur, p3d, f.kpts, has3d,
                     iters=g.gate_refine_iters,
@@ -486,7 +486,7 @@ def track_step_impl(cfg: SLAMConfig, K, state: TrackState, f: FrameFeatures,
             | (se3.rotation_angle_deg(R_chain) > cfg.runtime.gt_rot_filter))
 
     # 8. keyframe + map insertion (gated)
-    with record_function("track.insert_keyframe"):
+    with tracing.span("track.insert_keyframe"):
         mstate = insert_keyframe(
             mstate, R_cur, t_cur, f.frame_idx, f.kpts, f.desc, f.valid,
             reobs_mpid, tri.points, tri.valid, m.matches0,

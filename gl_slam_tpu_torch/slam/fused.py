@@ -28,6 +28,15 @@ The chunk also runs S sequences at once on a leading stream axis
 (`build_multistream_chunk_fn`, parallel/multistream.py): extraction in
 groups of streams, then one prologue over all S T pairs and a per-frame
 loop whose every step covers the S streams.
+
+Spans (tracing.py): `chunk` around a multi-stream chunk, `extract` around
+each extraction call, `prologue` around the prologue (`prologue.match`,
+`prologue.subpix`, `prologue.essential`) and `track` around the per-frame
+loop, whose frames are marked with `tracing.at_frame`; the recovery
+branch's read of the previous verdict is the span `track.host_read`.
+`chunk`, `prologue` and `track` are recorded without a profiler range
+(`tracing.span`'s `profile=False`), so a device trace keeps the ranges it
+had: the leaves, and a caller's own range around the call.
 """
 
 from __future__ import annotations
@@ -36,8 +45,8 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import tracing
 from ..config import SLAMConfig
 from ..geometry import essential as essential_mod
 from ..models.lightglue import normalize_keypoints
@@ -200,7 +209,8 @@ def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int,
         chunk, the one wait for the card in this mode. Under a stream axis
         the S verdicts are read at once; when any stream needs the branch
         it runs for all streams on the stream axis and each stream selects
-        its own result (JAX's `lax.cond` under `vmap`).
+        its own result (JAX's `lax.cond` under `vmap`). The read goes
+        through `tracing.host_read` (the span `track.host_read`).
 
     `match_with_lightglue=False` matches pass 1 by mutual nearest
     neighbours instead of LightGlue. `reobs_with_lightglue` picks the
@@ -266,7 +276,7 @@ def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int,
         L = state.map.lead
         lead = state.map.num_kf.shape
         if features is None:
-            with record_function("extract"):
+            with tracing.span("extract"):
                 flat = images.reshape((-1,) + images.shape[L + 1:])
                 feats = tuple(x.reshape(lead + (chunk,) + x.shape[1:])
                               for x in extract_batch(flat))
@@ -293,88 +303,94 @@ def build_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K, chunk: int,
 
         # Pair t = (frame t-1, frame t); pair 0 uses the stored
         # last-accepted features.
-        kp0_b = pairs(state.prev_kpts, kpts_b)
-        d0_b = pairs(state.prev_desc, desc_b)
-        v0_b = pairs(state.prev_valid, valid_b)
-        with record_function("prologue.match"):
-            m_b = pass1(kp0_b, d0_b, v0_b, kpts_b, desc_b, valid_b)
-        if pair_mode:
-            # refine the matched current keypoints; pair t-1's refinement
-            # of frame t-1 reaches pair t through kp0_b
-            with record_function("prologue.subpix"):
-                pat0_b = pairs(state.prev_patches, patches_b)
-                kpts_b = pair_refine_scatter(
-                    subpix_head, pat0_b, patches_b, d0_b, desc_b, kpts_b,
-                    m_b.matches0, m_b.mscores0,
-                    match_ops.score_filter(m_b.matches0, m_b.mscores0, thr))
+        with tracing.span("prologue", profile=False):
             kp0_b = pairs(state.prev_kpts, kpts_b)
-        ess_b = None
-        if not use_pnp:
-            with record_function("prologue.essential"):
-                ess_b = essential_of(kp0_b, kpts_b, m_b, u)
-
-        outs, recovered = [], []
-        ok_prev = torch.ones(lead, dtype=torch.bool, device=dev)
-        for i in range(chunk):
-            f = frontend.FrameFeatures(
-                kpts=fr(kpts_b, i), desc=fr(desc_b, i),
-                valid=fr(valid_b, i), frame_idx=frame_ids[i].expand(lead))
-            fg = fr(frame_gate, i)
-            m = match_ops.MatchResult(*(fr(x, i) for x in m_b))
-            ess = None if ess_b is None else \
-                essential_mod.EssentialResult(*(fr(x, i) for x in ess_b))
-            if prologue_recovery:
-                # pair 0's partner is the carried state itself
-                stale = np.zeros(lead, dtype=bool) if i == 0 \
-                    else ~ok_prev.cpu().numpy()
-                gate = fg
-            else:
-                stale = np.zeros(lead, dtype=bool)
-                gate = ok_prev if fg is None else ok_prev & fg
-            if stale.any():
-                with record_function("track.recover"):
-                    m_r = match_ops.mutual_nn_match(
-                        state.prev_desc, state.prev_valid, f.desc, f.valid)
-                    ess_r = None if use_pnp else essential_of(
-                        state.prev_kpts, f.kpts, m_r, fr(u, i))
-                if L == 0:
-                    m, ess = m_r, ess_r
+            d0_b = pairs(state.prev_desc, desc_b)
+            v0_b = pairs(state.prev_valid, valid_b)
+            with tracing.span("prologue.match"):
+                m_b = pass1(kp0_b, d0_b, v0_b, kpts_b, desc_b, valid_b)
+            if pair_mode:
+                # refine the matched current keypoints; pair t-1's
+                # refinement of frame t-1 reaches pair t through kp0_b
+                with tracing.span("prologue.subpix"):
+                    pat0_b = pairs(state.prev_patches, patches_b)
+                    kpts_b = pair_refine_scatter(
+                        subpix_head, pat0_b, patches_b, d0_b, desc_b, kpts_b,
+                        m_b.matches0, m_b.mscores0,
+                        match_ops.score_filter(m_b.matches0, m_b.mscores0,
+                                               thr))
+                kp0_b = pairs(state.prev_kpts, kpts_b)
+            ess_b = None
+            if not use_pnp:
+                with tracing.span("prologue.essential"):
+                    ess_b = essential_of(kp0_b, kpts_b, m_b, u)
+        with tracing.span("track", profile=False):
+            outs, recovered = [], []
+            ok_prev = torch.ones(lead, dtype=torch.bool, device=dev)
+            for i in range(chunk):
+                tracing.at_frame(i)
+                f = frontend.FrameFeatures(
+                    kpts=fr(kpts_b, i), desc=fr(desc_b, i),
+                    valid=fr(valid_b, i), frame_idx=frame_ids[i].expand(lead))
+                fg = fr(frame_gate, i)
+                m = match_ops.MatchResult(*(fr(x, i) for x in m_b))
+                ess = None if ess_b is None else \
+                    essential_mod.EssentialResult(*(fr(x, i) for x in ess_b))
+                if prologue_recovery:
+                    # pair 0's partner is the carried state itself
+                    stale = np.zeros(lead, dtype=bool) if i == 0 else \
+                        ~tracing.host_read(ok_prev, "track.host_read").numpy()
+                    gate = fg
                 else:
-                    sel = torch.from_numpy(stale).to(dev)
-                    m = type(m)(*(_where(sel, a, b)
-                                  for a, b in zip(m_r, m)))
-                    ess = None if ess is None else type(ess)(*(
-                        _where(sel, a, b) for a, b in zip(ess_r, ess)))
-            state, out = frontend.track_step_impl(
-                cfg, K, state, f, matches=m, ess_result=ess,
-                matcher=reobs_matcher, accept_gate=gate,
-                patches=fr(patches_b, i), pnp_gumbel=fr(pnp_gumbel, i))
-            ok_prev = out.frame_ok if fg is None \
-                else torch.where(fg, out.frame_ok, ok_prev)
-            outs.append(out)
-            recovered.append(bool(stale) if L == 0 else stale)
-        return state, outs, recovered
+                    stale = np.zeros(lead, dtype=bool)
+                    gate = ok_prev if fg is None else ok_prev & fg
+                if stale.any():
+                    with tracing.span("track.recover"):
+                        m_r = match_ops.mutual_nn_match(
+                            state.prev_desc, state.prev_valid, f.desc, f.valid)
+                        ess_r = None if use_pnp else essential_of(
+                            state.prev_kpts, f.kpts, m_r, fr(u, i))
+                    if L == 0:
+                        m, ess = m_r, ess_r
+                    else:
+                        sel = torch.from_numpy(stale).to(dev)
+                        m = type(m)(*(_where(sel, a, b)
+                                      for a, b in zip(m_r, m)))
+                        ess = None if ess is None else type(ess)(*(
+                            _where(sel, a, b) for a, b in zip(ess_r, ess)))
+                state, out = frontend.track_step_impl(
+                    cfg, K, state, f, matches=m, ess_result=ess,
+                    matcher=reobs_matcher, accept_gate=gate,
+                    patches=fr(patches_b, i), pnp_gumbel=fr(pnp_gumbel, i))
+                ok_prev = out.frame_ok if fg is None \
+                    else torch.where(fg, out.frame_ok, ok_prev)
+                outs.append(out)
+                recovered.append(bool(stale) if L == 0 else stale)
+            return state, outs, recovered
 
     def _serial(state, kpts_b, desc_b, valid_b, frame_ids, u, frame_gate,
                 pnp_gumbel, fr, lead):
         """The serial layout: pass-1 matching and the essential RANSAC in
         the per-frame loop, against the carried last-accepted features."""
         outs = []
-        for i in range(chunk):
-            f = frontend.FrameFeatures(
-                kpts=fr(kpts_b, i), desc=fr(desc_b, i),
-                valid=fr(valid_b, i), frame_idx=frame_ids[i].expand(lead))
-            m = None
-            if match_with_lightglue:
-                with record_function("track.match"):
-                    m = lg_match(state.prev_kpts, state.prev_desc,
-                                 state.prev_valid, f.kpts, f.desc, f.valid)
-            state, out = frontend.track_step_impl(
-                cfg, K, state, f, matches=m, matcher=reobs_matcher,
-                accept_gate=fr(frame_gate, i),
-                u=None if use_pnp else fr(u, i),
-                pnp_gumbel=fr(pnp_gumbel, i))
-            outs.append(out)
+        with tracing.span("track", profile=False):
+            for i in range(chunk):
+                tracing.at_frame(i)
+                f = frontend.FrameFeatures(
+                    kpts=fr(kpts_b, i), desc=fr(desc_b, i),
+                    valid=fr(valid_b, i), frame_idx=frame_ids[i].expand(lead))
+                m = None
+                if match_with_lightglue:
+                    with tracing.span("track.match"):
+                        m = lg_match(state.prev_kpts, state.prev_desc,
+                                     state.prev_valid, f.kpts, f.desc,
+                                     f.valid)
+                state, out = frontend.track_step_impl(
+                    cfg, K, state, f, matches=m, matcher=reobs_matcher,
+                    accept_gate=fr(frame_gate, i),
+                    u=None if use_pnp else fr(u, i),
+                    pnp_gumbel=fr(pnp_gumbel, i))
+                outs.append(out)
         no = False if not lead else np.zeros(lead, dtype=bool)
         return state, outs, [no] * chunk
 
@@ -444,7 +460,7 @@ def build_multistream_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K,
             grp = 1
         outs = []
         for j in range(0, s, grp):
-            with record_function("extract"):
+            with tracing.span("extract"):
                 outs.append(extract_batch(images[j:j + grp].reshape(
                     (grp * chunk,) + images.shape[2:])))
         feats = [torch.cat(xs).reshape((s, chunk) + xs[0].shape[1:])
@@ -465,15 +481,18 @@ def build_multistream_chunk_fn(cfg: SLAMConfig, sp_net, lg_net, K,
         if images.shape[0] != num_streams:
             raise ValueError(f"images for {images.shape[0]} streams, built "
                              f"for {num_streams}")
-        if devices is None:
-            return run_part(0, states, images, frame_idx0, u, frame_gate,
-                            pnp_gumbel)
-        ins = [mesh_lib.shard_streams(x, devices)
-               for x in (images, u, frame_gate, pnp_gumbel)]
-        res = []
-        for p in range(len(parts)):
-            im, up, fg, gum = (None if x is None else x[p] for x in ins)
-            res.append(run_part(p, states[p], im, frame_idx0, up, fg, gum))
-        return tuple(list(r) for r in zip(*res))
+        with tracing.span("chunk", streams=num_streams, step=True,
+                          profile=False):
+            if devices is None:
+                return run_part(0, states, images, frame_idx0, u, frame_gate,
+                                pnp_gumbel)
+            ins = [mesh_lib.shard_streams(x, devices)
+                   for x in (images, u, frame_gate, pnp_gumbel)]
+            res = []
+            for p in range(len(parts)):
+                im, up, fg, gum = (None if x is None else x[p] for x in ins)
+                res.append(run_part(p, states[p], im, frame_idx0, up, fg,
+                                    gum))
+            return tuple(list(r) for r in zip(*res))
 
     return ms_chunk

@@ -38,8 +38,8 @@ from typing import Any, Iterable, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import tracing
 from ..config import SLAMConfig
 from ..device import resolve_device, upload
 from . import ba as ba_mod
@@ -152,7 +152,7 @@ class TrackingPipeline:
     def _match(self, kpts0, desc0, valid0, f: FrameFeatures):
         if self.matcher is None:
             return None
-        with record_function("track.match"):
+        with tracing.span("track.match"):
             return self.matcher(kpts0, desc0, valid0, f.kpts, f.desc,
                                 f.valid)
 
@@ -225,7 +225,7 @@ class TrackingPipeline:
         if num_kf - self._kf_at_last_ba < self.cfg.runtime.ba_trigger_keyframes:
             return
         first = max(self._kf_at_last_ba - self.cfg.ba.full_ba_overlap, 0)
-        with record_function("backend.ba"):
+        with tracing.span("backend.ba"):
             new_map = ba_mod.ba_step(self.cfg, self.K, self.state.map, first,
                                      num_kf - first)
         self._kf_at_last_ba = num_kf
@@ -249,7 +249,7 @@ class TrackingPipeline:
         mc = self.cfg.map
         if not mc.recycle_enabled:
             return
-        with record_function("backend.recycle"):
+        with tracing.span("backend.recycle"):
             self.state = self.state._replace(map=recycle_free_slots(
                 self.state.map, mc.recycle_min_age,
                 min(mc.recycle_budget, mc.max_points),

@@ -119,10 +119,21 @@ def _jax_chunked_report_keys():
 
 
 def test_cli_report_has_the_keys_of_jax(cli_run):
+    """The JAX report's keys, and `stages`: the host time of each
+    top-level span, in the per-frame route's format."""
     report, _ = cli_run(None)
     keys = _jax_chunked_report_keys()
     assert "ate_rmse_m" in keys and "frames_rejected" in keys
-    assert set(report) == keys
+    assert set(report) == keys | {"stages"}
+    stages = report["stages"]
+    assert set(stages) == {"backend.ba", "backend.recycle", "bootstrap",
+                           "chunk", "warmup"}
+    # frames 2-19 in chunks of 4: four chunks and the tail, a BA pass after
+    # each (the warm-up's own pass is inside `warmup`)
+    assert stages["chunk"]["count"] == stages["backend.ba"]["count"] == 5
+    assert stages["bootstrap"]["count"] == stages["warmup"]["count"] == 1
+    for v in stages.values():
+        assert set(v) == {"total_s", "mean_ms", "count"}
 
 
 def test_cli_warmup_changes_nothing(cli_run):

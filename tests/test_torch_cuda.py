@@ -752,6 +752,48 @@ def test_motion_gated_chunk_loop_reads_the_card_once_a_frame(cuda_device):
     assert pipe.num_recoveries == 0 and np.isfinite(o.t).all()
 
 
+def test_recording_counts_reads_and_synchronisations(cuda_device):
+    """Under tracing.recording() on the card, the motion-gated chunk's
+    verdict reads are the funnel's (one a frame after the first, on
+    `track.host_read`, none of them counted again as an implicit
+    synchronisation), and an implicit one (a 0-d `.item()`) is counted on
+    the innermost span with its file and line; the sync debug mode is put
+    back. With `syncs=False` (the command line's) the mode and the
+    warning hook are left alone and the funnel's reads are still
+    counted."""
+    import warnings
+
+    from gl_slam_tpu_torch import tracing
+
+    pipe, stack = _tiny_chunked(cuda_device, runtime_kw=dict(
+        every_frame_keyframe=False, gt_mag_filter=1e6, gt_rot_filter=1e6))
+    pipe.track_chunk(stack[2:7])
+    torch.cuda.synchronize()
+    with tracing.recording() as rec:
+        pipe.track_chunk(stack[7:12])
+        with tracing.span("probe"):
+            torch.ones((), device=cuda_device).item()
+    pipe.finish()
+    s = rec.summary()
+    assert s["track.host_read"]["reads"] == 5 - 1
+    assert s["track.host_read"]["blocked_ms"] > 0.0
+    assert {k for k, v in s.items() if v["syncs"]} == {"probe"}
+    assert s["probe"]["syncs"] == 1
+    (where, site), = rec.sync_sites
+    assert where == "probe" and "test_torch_cuda.py:" in site
+    assert torch.cuda.get_sync_debug_mode() == 0
+    shown = warnings.showwarning
+    with tracing.recording(syncs=False) as rec:
+        assert torch.cuda.get_sync_debug_mode() == 0
+        assert warnings.showwarning is shown
+        with tracing.span("probe"):
+            torch.ones((), device=cuda_device).item()
+        tracing.host_read(torch.ones(2, device=cuda_device), "probe.read")
+    s = rec.summary()
+    assert s["probe"]["syncs"] == 0 and not rec.sync_sites
+    assert s["probe.read"]["reads"] == 1
+
+
 def test_kernels_reject_what_they_do_not_take(cuda_device):
     q = torch.zeros(2, 8, 48, dtype=torch.bfloat16, device=cuda_device)
     m = torch.ones(8, dtype=torch.bool, device=cuda_device)
