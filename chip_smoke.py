@@ -97,6 +97,11 @@ mode's (the window and covisibility sets, 1024 points each, on a leading
 set axis of 2 against the 2048-keypoint frame), and at the multi-stream
 chunk's with 4 and 16 streams (the prologue's S x 8 pairs, S
 re-observation sets; NMS of 16 maps, extraction in groups of 2 streams).
+Phase 2 holds the pose LM kernel to the plain version within the JAX
+parity test's tolerances at the multi-stream cell's shapes (192 problems
+x 2048 points x 8 + 30 iterations, 64 x 2048 x 10) and one stream's (3
+starts, the gate refine), with outliers, points behind the camera, masks
+and point weights, and prints its live iterations and times.
  11. front-end training (gl_slam_tpu_torch/train/frontend_train.py) at
      the flagship preset's width (376x1240, N=2048, D=256, the 9-layer
      2-head matcher) on one rendered 20000-landmark scene of 8 frames:
@@ -141,7 +146,7 @@ sets x 2 heads, 2048 x 2048; 8 maps of 376 x 1240 at radius 3).
      kernel launches (warm-up included) equal to what its chunks,
      re-observation mode and detections imply; then
      scripts/profile_stages_torch.py's 15 stages with 2 calls a stage.
-The line before the last is the `kernels` JSON (the three kernels at the
+The line before the last is the `kernels` JSON (the four kernels at the
 shapes of phase 13's run, with its launches); the last line is the device
 JSON. Details go to chiprun_out/chip_smoke.json.
 """
@@ -244,8 +249,10 @@ def expected_launches(n_chunks, reobs_mode="separate", reobs_points=M_REOBS,
     `reobs_points` = N points (the bench's strict cells) are stacked with
     the frame's, 18 attention calls a pass. The PnP tracker and motion
     gating launch what the separate mode does (the chunk's recovery branch
-    matches by mutual nearest neighbours). `bootstrap=False`: the chunks
-    alone (bench_torch.py's cells start from an empty map)."""
+    matches by mutual nearest neighbours). The pose LM launches twice per
+    tracked frame, for every stream at once: the three starts and the gate
+    refine, which every chunked configuration here runs. `bootstrap=False`:
+    the chunks alone (bench_torch.py's cells start from an empty map)."""
     tracked = n_chunks * CHUNK
     passes = {"separate": 2, "merged": 1, "batched": 1,
               "mutual_nn": 0}[reobs_mode]
@@ -254,7 +261,8 @@ def expected_launches(n_chunks, reobs_mode="separate", reobs_points=M_REOBS,
     return {"attention": 18 * (boot + n_chunks) + tracked * per_pass * passes,
             "assignment": ASSIGN_KERNELS_PER_CALL * (boot + n_chunks
                                                      + tracked * passes),
-            "nms": boot + n_chunks}
+            "nms": boot + n_chunks,
+            "pose_lm": 2 * tracked}
 
 
 # The per-frame route (phase 8): the command line's NMS radius (3) on the
@@ -264,7 +272,8 @@ PF_PROFILE_FRAMES = 12
 ORACLE_FRAMES = 41                # the default route: --last-frame 40
 
 
-def expected_launches_per_frame(steps, n_kpts=N_KPTS, reobs_points=N_KPTS):
+def expected_launches_per_frame(steps, n_kpts=N_KPTS, reobs_points=N_KPTS,
+                                gate_refine=True):
     """Kernel launches of the per-frame learned route over a bootstrap and
     `steps` tracked frames: two batch-1 extractions and one matcher pass at
     the bootstrap; per step one extraction and three matcher passes (pass 1
@@ -272,11 +281,20 @@ def expected_launches_per_frame(steps, n_kpts=N_KPTS, reobs_points=N_KPTS):
     makes 18 attention calls (9 layers x self + cross, the sets stacked),
     of unequal size 36; the command line sets the re-observation sets to
     min(kpts, 2048) points, the frame's size. One assignment call per
-    pass."""
+    pass. The pose LM: two launches a step with the gate refine, else
+    one."""
     reobs = 18 if reobs_points == n_kpts else 36
     return {"attention": 18 + steps * (18 + 2 * reobs),
             "assignment": ASSIGN_KERNELS_PER_CALL * (1 + 3 * steps),
-            "nms": 2 + steps}
+            "nms": 2 + steps,
+            "pose_lm": (2 if gate_refine else 1) * steps}
+
+
+def gate_refine_on(cfg):
+    """Whether a track step runs the pose LM a second time (the gate
+    refine after the reprojection gate)."""
+    g = cfg.geometry
+    return g.reobs_max_reproj_px > 0 and g.gate_refine_iters > 0
 
 
 class Failure(Exception):
@@ -723,6 +741,123 @@ def check_nms(torch, gen, dev, report, cfg, sp, stack):
     return worst
 
 
+# The pose LM at the multi-stream cell's shapes (benchmark strict.fleet64):
+# 64 streams x 3 starts x 2048 points with 8 coarse + 30 fine iterations,
+# and the gate refine, 64 x 1 start x 10; and one stream's two calls.
+POSE_LM_SHAPES = ((64, 3, 8, 30), (64, 0, 0, 10), (1, 3, 8, 30),
+                  (1, 0, 0, 10))
+# Float operations a point per LM iteration (the projection, the Cauchy
+# weight, the Jacobian and the 27 normal-equation sums: ~170; the trial
+# cost: ~35) and per cost-only pass (one a phase).
+POSE_LM_ITER_FLOPS, POSE_LM_COST_FLOPS = 205, 35
+POSE_LM_POINT_BYTES = 25        # xyz, uv, weight f32 and the mask byte
+
+
+def pose_problems(torch, gen, dev, S, starts, N):
+    """S rows of N points 4-40 m ahead of KITTI's camera (K shared), seen
+    from a pose per row with 0.5 px noise; 20 % moved 20-80 px, 3 % behind
+    the camera, ~15 % masked, 30 % weighted 0.2; starts (S, [starts,] 3, 3)
+    1-3 degrees and up to 0.3 m from the truth."""
+    from gl_slam_tpu_torch.geometry import se3
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen, device=dev)
+
+    X = torch.stack([u(S, N, lo=-15, hi=15), u(S, N, lo=-4, hi=4),
+                     u(S, N, lo=4, hi=40)], -1)
+    K = torch.tensor([[718.9, 0.0, 607.2], [0.0, 718.9, 185.2],
+                      [0.0, 0.0, 1.0]], device=dev)
+    R = se3.exp_so3(0.03 * torch.randn(S, 3, generator=gen, device=dev))
+    t = 0.5 * torch.randn(S, 3, generator=gen, device=dev)
+    pc = X @ R.transpose(-1, -2) + t[:, None]
+    uv = pc @ K.T
+    uv = uv[..., :2] / uv[..., 2:3] \
+        + 0.5 * torch.randn(S, N, 2, generator=gen, device=dev)
+    sign = torch.where(u(S, N, 2) < 0.5, -1.0, 1.0)
+    uv = uv + (u(S, N, 1) < 0.2) * sign * u(S, N, 2, lo=20, hi=80)
+    behind = u(S, N, 1) < 0.03
+    X = torch.where(behind, (-pc - t[:, None]) @ R, X)   # at -pc
+    mask = u(S, N) < 0.85
+    pw = torch.where(u(S, N) < 0.3, 0.2, 1.0)
+    n = max(starts, 1)
+    dw = torch.randn(S, n, 3, generator=gen, device=dev)
+    dw = dw / dw.norm(dim=-1, keepdim=True) * u(S, n, 1, lo=1, hi=3) \
+        * math.pi / 180
+    R0 = se3.exp_so3(dw) @ R[:, None]
+    t0 = t[:, None] + 0.3 * u(S, n, 3, lo=-1, hi=1) / math.sqrt(3)
+    if not starts:
+        R0, t0 = R0[:, 0], t0[:, 0]
+    if S == 1:
+        X, uv, mask, pw, R0, t0 = (x[0] for x in (X, uv, mask, pw, R0, t0))
+    return K, R0.contiguous(), t0.contiguous(), X, uv, mask, pw
+
+
+def check_pose_lm(torch, gen, dev, report):
+    """The pose LM kernel against the plain version on the card at the
+    tracker's shapes: R within 1e-5, t within 1e-4, the final cost within
+    1e-4 relative (the JAX parity test's tolerances: both float32 LMs, the
+    kernel summing in another order), num_used exact, one launch a call;
+    the live iterations of every problem, and the times."""
+    from gl_slam_tpu_torch.ops import _build
+    from gl_slam_tpu_torch.slam import pose_ba
+    worst = 0.0
+    for S, starts, coarse, iters in POSE_LM_SHAPES:
+        N = N_KPTS
+        K, R0, t0, X, uv, mask, pw = pose_problems(torch, gen, dev, S,
+                                                   starts, N)
+        kw = dict(iters=iters, coarse_iters=coarse, coarse_scale_mult=8.0,
+                  point_weights=pw)
+        before = _build.LAUNCHES["pose_lm"]
+        got, live = pose_ba.pose_lm_cuda(K, R0, t0, X, uv, mask,
+                                         live_iters=True, **kw)
+        check(_build.LAUNCHES["pose_lm"] == before + 1,
+              "pose_lm: not one launch a call")
+        want = pose_ba.pose_only_ba_multi_plain(K, R0, t0, X, uv, mask, **kw)
+        torch.cuda.synchronize()
+        P = got.final_cost.numel()
+        name = f"{P} problems x {N} points x {coarse}+{iters} iterations"
+        err_R = float((got.R - want.R).abs().max())
+        err_t = float((got.t - want.t).abs().max())
+        err_c = float(((got.final_cost - want.final_cost).abs()
+                       / want.final_cost.abs().clamp_min(1e-6)).max())
+        check(bool(torch.isfinite(got.R).all() and torch.isfinite(got.t)
+                   .all()), f"pose_lm {name}: non-finite pose")
+        check(err_R <= 1e-5 and err_t <= 1e-4 and err_c <= 1e-4,
+              f"pose_lm {name}: |dR| {err_R:.3g} |dt| {err_t:.3g} cost "
+              f"{err_c:.3g} relative, past 1e-5 / 1e-4 / 1e-4")
+        check(torch.equal(got.num_used,
+                          want.num_used.expand_as(got.num_used)),
+              f"pose_lm {name}: num_used differs")
+        lv = live.reshape(-1).cpu().numpy()
+        check(lv.min() >= 1 and lv.max() <= coarse + iters,
+              f"pose_lm {name}: live iterations {lv.min()}..{lv.max()} "
+              f"outside 1..{coarse + iters}")
+        worst = max(worst, err_R, err_t)
+        phases = 2 if coarse else 1
+        flops = N * (float(lv.sum()) * POSE_LM_ITER_FLOPS
+                     + P * phases * POSE_LM_COST_FLOPS)
+        nbytes = (P // max(starts, 1)) * N * POSE_LM_POINT_BYTES
+        row = dict(
+            shape=name, max_abs_err=max(err_R, err_t), err_R=err_R,
+            err_t=err_t, cost_rel_err=err_c,
+            live_iters=dict(mean=float(lv.mean()), min=int(lv.min()),
+                            max=int(lv.max()), budget=coarse + iters),
+            ms=time_ms(lambda: pose_ba.pose_lm_cuda(K, R0, t0, X, uv, mask,
+                                                    **kw)),
+            plain_ms=time_ms(lambda: pose_ba.pose_only_ba_multi_plain(
+                K, R0, t0, X, uv, mask, **kw), reps=3, warmup=1),
+            library_ms=None)
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes,
+                                                 PEAK_F32_FLOPS)
+        report.append(row)
+        print(f"  pose_lm {name}: |dR| {err_R:.2e} |dt| {err_t:.2e} cost "
+              f"{err_c:.2e} rel; live iterations mean {lv.mean():.1f} "
+              f"({lv.min()}-{lv.max()} of {coarse + iters}); kernel "
+              f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the flagship-width slice
 
@@ -733,7 +868,8 @@ STAGES = ("extract", "extract.nms", "prologue.match", "prologue.subpix",
           "track.insert_keyframe", "backend.ba", "backend.recycle")
 OWN_KERNELS = {"attention": ("attention_kernel",),
                "assignment": ("assign_pass",),
-               "nms": ("nms_kernel",)}
+               "nms": ("nms_kernel",),
+               "pose_lm": ("pose_lm_kernel",)}
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")
 
@@ -1595,7 +1731,8 @@ def run_per_frame(torch, details, data):
         torch, argv("superpoint", CLI_FRAMES - 1, *learned))
     gated = report["frames_gated"]
     steps = CLI_FRAMES - 2 - gated
-    want = expected_launches_per_frame(steps)
+    want = expected_launches_per_frame(steps,
+                                       gate_refine=gate_refine_on(pipe.cfg))
     o = pipe.stacked_outputs()
     matches = float(o.num_matches[1:].mean())
     inliers = float(o.num_inliers[1:].mean())
@@ -1656,9 +1793,11 @@ def run_per_frame(torch, details, data):
         n_frames = CLI_FRAMES if kind == "harris" else ORACLE_FRAMES
         st = n_frames - 2 - rep["frames_gated"]
         # Harris extracts once per frame through the NMS kernel (r 4); the
-        # oracle launches no kernel; mutual NN matches both
+        # oracle through none; mutual NN matches both; both track through
+        # the pose LM kernel
         want_k = {"attention": 0, "assignment": 0,
-                  "nms": st + 2 if kind == "harris" else 0}
+                  "nms": st + 2 if kind == "harris" else 0,
+                  "pose_lm": (2 if gate_refine_on(p.cfg) else 1) * st}
         files = check_per_frame_artifacts(outs[kind], rep, kind, st)
         print(f"  {kind}: frames tracked {rep['frames_tracked']} of "
               f"{n_frames} ({rep['frames_gated']} gated); ATE "
@@ -1893,7 +2032,8 @@ def run_multistream(torch, dev, details, cfg, sp, lg, scene, stack):
     peak = torch.cuda.max_memory_allocated()
     want = {"attention": MS_CHUNKS * per_chunk["attention"],
             "assignment": MS_CHUNKS * per_chunk["assignment"],
-            "nms": S + MS_CHUNKS * S}
+            "nms": S + MS_CHUNKS * S,
+            "pose_lm": MS_CHUNKS * per_chunk["pose_lm"]}
     st = tr.state
     ok = torch.stack([o.frame_ok for o in outs]).cpu().numpy()    # (T, S)
     n_rec = int(np.asarray(recs).sum())
@@ -1939,7 +2079,8 @@ def run_multistream(torch, dev, details, cfg, sp, lg, scene, stack):
     wall_k = time.perf_counter() - t0
     launches_k = dict(_build.LAUNCHES)
     want_k = {"attention": per_chunk["attention"],
-              "assignment": per_chunk["assignment"], "nms": 2 * S}
+              "assignment": per_chunk["assignment"], "nms": 2 * S,
+              "pose_lm": per_chunk["pose_lm"]}
     ok_k = torch.stack([o.frame_ok for o in outs_k]).cpu().numpy()
     n_rec_k = int(np.asarray(recs_k).sum())
     kf_k = trk.state.map.num_kf.cpu().numpy()
@@ -1974,7 +2115,8 @@ def run_multistream(torch, dev, details, cfg, sp, lg, scene, stack):
     peak16 = torch.cuda.max_memory_allocated()
     want16 = {"attention": per_chunk["attention"],
               "assignment": per_chunk["assignment"],
-              "nms": 2 * MS_BIG // MS_BIG_GROUP}
+              "nms": 2 * MS_BIG // MS_BIG_GROUP,
+              "pose_lm": per_chunk["pose_lm"]}
     ok16 = torch.stack([o.frame_ok for o in outs16]).cpu().numpy()
     st16 = tr16.state
     print(f"  {MS_BIG} streams, extraction in groups of {MS_BIG_GROUP}: "
@@ -2066,7 +2208,7 @@ def run_entry_points(torch, dev, details, cfg, sp, lg, stack, slice_map):
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     want = {"attention": 18, "assignment": ASSIGN_KERNELS_PER_CALL,
-            "nms": 1}
+            "nms": 1, "pose_lm": 0}
     cfg1 = dataclasses.replace(cfg, frontend=dataclasses.replace(
         fe, subpix_patch=1))
     with torch.no_grad():
@@ -2521,22 +2663,23 @@ def run_training(torch, dev, details, sp_flagship):
                       f"{TRAIN_FRAMES}, seed=7)", trainers={})
     steps_lg = TRAIN_STEPS
     want = {
-        "superpoint": {"attention": 0, "assignment": 0, "nms": 0},
+        "superpoint": {"attention": 0, "assignment": 0, "nms": 0,
+                       "pose_lm": 0},
         # one detection call per 8 staged frames
         "subpix": {"attention": 0, "assignment": 0,
-                   "nms": -(-TRAIN_FRAMES // 8)},
+                   "nms": -(-TRAIN_FRAMES // 8), "pose_lm": 0},
         "pair_subpix": {"attention": 0, "assignment": 0,
-                        "nms": -(-TRAIN_FRAMES // 8)},
+                        "nms": -(-TRAIN_FRAMES // 8), "pose_lm": 0},
         # forward launches only: 9 layers x (self + cross) per step
         "lightglue": {"attention": steps_lg * LG_LAYERS * 2,
-                      "assignment": 0, "nms": 0},
+                      "assignment": 0, "nms": 0, "pose_lm": 0},
     }
     runs = (("superpoint", ft.train_superpoint, (sp,), dict(batch_size=4)),
             ("subpix", ft.train_subpix, (ks, sp), {}),
             ("pair_subpix", ft.train_pair_subpix, (kp, sp), {}),
             ("lightglue", ft.train_lightglue, (lg, sp),
              dict(batch_size=TRAIN_PAIRS, desc_age_max=6, jitter_px=1.0)))
-    launches_all = {"attention": 0, "assignment": 0, "nms": 0}
+    launches_all = {"attention": 0, "assignment": 0, "nms": 0, "pose_lm": 0}
     for name, fn, mods, kw in runs:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2694,13 +2837,15 @@ def main() -> int:
         print(f"phase 2: kernels against their plain versions "
               f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
         gen = torch.Generator(device=dev).manual_seed(0)
-        attn_rows, asg_rows, nms_rows = [], [], []
+        attn_rows, asg_rows, nms_rows, lm_rows = [], [], [], []
         attn_err = check_attention(torch, gen, dev, attn_rows)
         asg_err = check_assignment(torch, gen, dev, asg_rows)
         nms_err = check_nms(torch, gen, dev, nms_rows, cfg, sp, stack)
+        lm_err = check_pose_lm(torch, gen, dev, lm_rows)
         details["attention"] = attn_rows
         details["assignment"] = asg_rows
         details["nms"] = nms_rows
+        details["pose_lm"] = lm_rows
 
         print(f"phase 3: flagship-width chunked tracker with window BA "
               f"[{time.perf_counter() - t_start:.0f} s]", flush=True)
@@ -2768,9 +2913,14 @@ def main() -> int:
                 ("nms", nms_rows, nms_err,
                  "gl_slam_tpu_torch/csrc/nms.cu",
                  "gl_slam_tpu/ops/nms.py:86",
-                 f"detector {CHUNK}x")):
+                 f"detector {CHUNK}x"),
+                ("pose_lm", lm_rows, lm_err,
+                 "gl_slam_tpu_torch/csrc/pose_lm.cu",
+                 "none (gl_slam_tpu/slam/pose_ba.py is plain JAX)",
+                 "3 problems")):
             # the shapes of this slice's path: the chunk prologue's matcher
-            # and assignment, the chunk's extraction
+            # and assignment, the chunk's extraction, one stream's 3-start
+            # pose solve
             head = next(r for r in rows if r["shape"].startswith(shape))
             kernels.append(dict(
                 name=name, route="cuda", source=src, replaces=replaces,

@@ -49,6 +49,21 @@ def project_to_so3(M: torch.Tensor) -> torch.Tensor:
     return (U * D[..., None, :]) @ Vt
 
 
+def project_near_so3(R: torch.Tensor) -> torch.Tensor:
+    """`project_to_so3` of R (..., 3, 3) that is a rotation to within
+    float32 rounding (a chain of exp-map products), except where the
+    closed-form SVD fails on it: there R^T R's three eigenvalues meet, and
+    eigh3x3's eigenvectors can lose orthogonality by ~1e-4 (the result
+    turns by as much). Where the projection is not orthonormal to 2e-6
+    (it is to ~5e-7 elsewhere), one Newton-Schulz step of the polar
+    decomposition, R (3 I - R^T R) / 2, takes its place."""
+    P = project_to_so3(R)
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    lost = (P.transpose(-1, -2) @ P - eye).abs().amax((-2, -1)) > 2e-6
+    polished = 0.5 * (R @ (3.0 * eye - R.transpose(-1, -2) @ R))
+    return torch.where(lost[..., None, None], polished, P)
+
+
 def _mv(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (R @ v[..., None])[..., 0]
 

@@ -10,9 +10,9 @@ loaded. A missing `nvcc` or a failed build raises: there is no fallback for
 a CUDA tensor.
 
 Launch counters: every kernel wrapper adds to `LAUNCHES[name]` the number of
-kernels it launched (attention 1 per call, assignment 2, nms 1), where it
-launches them and nowhere else, so a run can show that the main path went
-through the kernels (chip_smoke.py resets and reads them).
+kernels it launched (attention 1 per call, assignment 2, nms 1, pose_lm 1),
+where it launches them and nowhere else, so a run can show that the main
+path went through the kernels (chip_smoke.py resets and reads them).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = {"attention": "attention.cu", "assignment": "assignment.cu",
-           "nms": "nms.cu"}
+           "nms": "nms.cu", "pose_lm": "pose_lm.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

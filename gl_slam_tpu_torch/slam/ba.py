@@ -452,8 +452,9 @@ def _ba_step(cfg, K, mstate, first_kf, window, want_diag):
         cfg, K, R0, t0, X0, prob)
 
     # Re-orthonormalize before write-back: the solved poses are chains of
-    # f32 exp-map products.
-    R = se3.project_to_so3(R)
+    # f32 exp-map products. (The JAX version's closed-form SVD projection
+    # can turn a near-rotation by ~1e-4: se3.project_near_so3.)
+    R = se3.project_near_so3(R)
     # Unique indices (window camera and point ids), the rest to the spare row
     kf_tgt = torch.where(prob.cam_mask & prob.cam_free, prob.cam_ids, Kmax)
     kf_R = _scatter(mstate.kf_R, kf_tgt, R, lead=L)

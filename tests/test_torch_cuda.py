@@ -291,6 +291,147 @@ def test_nms_kernel_on_an_unaligned_map(cuda_device, W):
     assert torch.equal(t_nms.nms(view, 4), t_nms.nms_plain(view, 4))
 
 
+def _pose_problem(lead, starts, N, per_k, seed, device):
+    """Pose problems at the tracker's layout and KITTI's camera: points
+    (*lead, N, 3) 4-40 m ahead seen from a pose per row with 0.5 px noise;
+    20 % of the observations moved 20-80 px (outliers), 3 % of the points
+    put behind the camera, ~15 % masked off, 30 % weighted 0.2; starts
+    (*lead, [starts,] 3, 3) 1-3 degrees and 0.05-0.3 m from the truth.
+    K is shared or, with `per_k`, 1 % apart from row to row."""
+    rng = np.random.default_rng(seed)
+    B = int(np.prod(lead))
+    X = np.stack([rng.uniform(-15, 15, (B, N)), rng.uniform(-4, 4, (B, N)),
+                  rng.uniform(4, 40, (B, N))], -1)
+    K = np.array([[718.9, 0.0, 607.2], [0.0, 718.9, 185.2], [0.0, 0.0, 1.0]])
+    Ks = np.repeat(K[None], B, 0)
+    if per_k:
+        Ks[:, :2] *= (1.0 + 0.01 * np.arange(B))[:, None, None]
+
+    def rot(w):
+        th = np.linalg.norm(w, axis=-1)[..., None, None]
+        W = np.zeros(w.shape[:-1] + (3, 3))
+        W[..., 0, 1], W[..., 0, 2], W[..., 1, 2] = -w[..., 2], w[..., 1], \
+            -w[..., 0]
+        W = W - np.swapaxes(W, -1, -2)
+        return (np.eye(3) + np.sin(th) / th * W
+                + (1 - np.cos(th)) / th ** 2 * W @ W)
+
+    R = rot(rng.normal(0, 0.03, (B, 3)))
+    t = rng.normal(0, 0.5, (B, 3))
+    pc = np.einsum("bij,bnj->bni", R, X) + t[:, None]
+    uv = np.einsum("bij,bnj->bni", Ks, pc)
+    uv = uv[..., :2] / uv[..., 2:3] + rng.normal(0, 0.5, (B, N, 2))
+    out = rng.uniform(size=(B, N)) < 0.2
+    uv += out[..., None] * rng.uniform(20, 80, (B, N, 2)) \
+        * rng.choice([-1.0, 1.0], (B, N, 2))
+    behind = rng.uniform(size=(B, N)) < 0.03
+    # X = R^T (-pc - t) puts the point at -pc in the camera
+    X[behind] = np.einsum("bji,bnj->bni", R, -pc - t[:, None])[behind]
+    mask = rng.uniform(size=(B, N)) < 0.85
+    pw = np.where(rng.uniform(size=(B, N)) < 0.3, 0.2, 1.0)
+    n_s = max(starts, 1)
+    dw = rng.normal(0, 1, (B, n_s, 3))
+    dw *= (rng.uniform(1, 3, (B, n_s, 1)) * np.pi / 180
+           / np.linalg.norm(dw, axis=-1, keepdims=True))
+    R0 = rot(dw) @ R[:, None]
+    t0 = t[:, None] + rng.normal(0, 1, (B, n_s, 3)) \
+        * rng.uniform(0.05, 0.3, (B, n_s, 1)) / np.sqrt(3)
+    shape_s = lead + ((starts,) if starts else ())
+    f = lambda a, *s: torch.tensor(  # noqa
+        np.asarray(a, np.float32).reshape(*s), device=device)
+    return (f(Ks, *lead, 3, 3) if per_k else f(K, 3, 3),
+            f(R0, *shape_s, 3, 3), f(t0, *shape_s, 3),
+            f(X, *lead, N, 3), f(uv, *lead, N, 2),
+            torch.tensor(mask.reshape(*lead, N), device=device),
+            f(pw, *lead, N))
+
+
+# (lead, starts, N, per-stream K, coarse iterations, fine iterations, point
+# weights): the tracker's calls on one stream (3 starts, 8 + 30
+# iterations; the gate refine, 1 start, 10), with a stream axis (shared K
+# and per stream), N not a multiple of the 256-thread block (300, 1000), a
+# call without point weights, and the cell's 64 streams (192 problems).
+POSE_LM_CASES = [((), 3, 2048, False, 8, 30, True),
+                 ((), 0, 2048, False, 0, 10, True),
+                 ((4,), 3, 2048, False, 8, 30, True),
+                 ((4,), 3, 300, True, 8, 30, False),
+                 ((4,), 0, 1000, True, 0, 10, True),
+                 ((64,), 3, 2048, False, 8, 30, True)]
+
+
+@pytest.mark.parametrize("lead,starts,N,per_k,coarse,iters,weights",
+                         POSE_LM_CASES)
+def test_pose_lm_kernel_matches_plain(cuda_device, lead, starts, N, per_k,
+                                      coarse, iters, weights):
+    """One launch per call; R, t and the final cost within the JAX parity
+    test's tolerances of the plain version on the card
+    (tests/test_torch_geometry.py: both are float32 LMs, the kernel's sums
+    in another order); num_used exact; every problem's live iterations
+    within the budget, and early stops among them."""
+    from gl_slam_tpu_torch.slam import pose_ba
+    K, R0, t0, X, uv, mask, pw = _pose_problem(lead, starts, N, per_k,
+                                               seed=len(lead) * 7 + N,
+                                               device=cuda_device)
+    if lead:
+        mask[0] = False                    # a stream with no point left
+    kw = dict(iters=iters, cauchy_scale=1.0, coarse_iters=coarse,
+              coarse_scale_mult=8.0, point_weights=pw if weights else None)
+    before = _build.LAUNCHES["pose_lm"]
+    got, live = pose_ba.pose_lm_cuda(K, R0, t0, X, uv, mask,
+                                     live_iters=True, **kw)
+    assert _build.LAUNCHES["pose_lm"] == before + 1
+    want = pose_ba.pose_only_ba_multi_plain(K, R0, t0, X, uv, mask, **kw)
+    torch.cuda.synchronize()
+    assert got.R.shape == want.R.shape and got.t.shape == want.t.shape
+    torch.testing.assert_close(got.R, want.R, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got.t, want.t, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.final_cost, want.final_cost, atol=1e-6,
+                               rtol=1e-4)
+    assert torch.equal(got.num_used, want.num_used.expand_as(got.num_used))
+    assert live.shape == got.final_cost.shape and live.dtype == torch.int32
+    assert int(live.min()) >= 1 and int(live.max()) <= coarse + iters
+    assert int((live < coarse + iters).sum()) > 0
+    if lead:
+        # no point: H = 0, no step lowers the cost, two stalls a phase
+        empty = live.reshape(lead[0], -1)[0]
+        assert torch.equal(empty, torch.full_like(
+            empty, (2 if coarse else 0) + 2))
+        assert float(got.final_cost.reshape(lead[0], -1)[0].abs().max()) \
+            == 0.0
+
+
+def test_pose_lm_moves_the_starts_to_the_truth(cuda_device):
+    """The comparison above must be able to fail: the kernel's result lies
+    far nearer the true poses than the starts do."""
+    from gl_slam_tpu_torch.slam import pose_ba
+    K, R0, t0, X, uv, mask, pw = _pose_problem((4,), 3, 2048, False, 5,
+                                               cuda_device)
+    got = pose_ba.pose_only_ba_multi(K, R0, t0, X, uv, mask, iters=30,
+                                     coarse_iters=8, point_weights=pw)
+    spread = float((got.t - got.t[:, :1]).abs().max())
+    moved = float((t0 - t0[:, :1]).abs().max())
+    assert spread < 1e-3 < 0.05 < moved
+
+
+def test_pose_lm_does_not_wait_for_the_card(cuda_device):
+    """The wrapper and its launch issue no operation that makes the host
+    wait for the stream (PyTorch's sync debug mode raises on one)."""
+    from gl_slam_tpu_torch.slam import pose_ba
+    args = _pose_problem((8,), 3, 2048, False, 9, cuda_device)
+    pose_ba.pose_only_ba_multi(*args[:6], point_weights=args[6])
+    torch.cuda.synchronize()
+    before = _build.LAUNCHES["pose_lm"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pose_ba.pose_only_ba_multi(*args[:6], iters=30, coarse_iters=8,
+                                   point_weights=args[6])
+        pose_ba.pose_only_ba(args[0], args[1][:, 0], args[2][:, 0],
+                             *args[3:6], iters=10, point_weights=args[6])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _build.LAUNCHES["pose_lm"] == before + 2
+
+
 def test_short_ba_run_on_the_card(cuda_device):
     """The tiny pipeline with a BA pass every chunk, on the card: extraction
     through the NMS kernel, two BA passes, no rollback; then one BA pass on
@@ -827,9 +968,9 @@ def test_kernels_refuse_a_grid_past_the_card_limits(cuda_device):
 
 def test_multistream_chunk_on_the_card_like_single_streams(cuda_device):
     """Three streams of the tiny pipeline (240x320, N=128) through one
-    multi-stream chunk on the card: attention and assignment launch as
-    often as for one stream's chunk, NMS once per group of streams, no
-    host wait (PyTorch's sync debug mode), and each stream keeps the
+    multi-stream chunk on the card: attention, assignment and the pose LM
+    launch as often as for one stream's chunk, NMS once per group of
+    streams, no host wait (PyTorch's sync debug mode), and each stream keeps the
     frames of its own single-stream chunk on the card (same draws), both
     held to tests/test_torch_slice.py's tracking bound (ATE < 1 m against
     the ground truth). Poses are not compared frame by frame here: the
@@ -895,6 +1036,7 @@ def test_multistream_chunk_on_the_card_like_single_streams(cuda_device):
     assert got["attention"] == single["attention"] > 0
     assert got["assignment"] == single["assignment"] > 0
     assert got["nms"] == S * single["nms"]
+    assert got["pose_lm"] == single["pose_lm"] > 0
     assert bool(outs[-1].frame_ok.all())
 
     def ate(R, t, sc):

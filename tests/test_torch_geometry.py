@@ -99,3 +99,39 @@ def test_pose_only_ba_multi_matches_jax():
     np.testing.assert_allclose(got.t.numpy(), np.asarray(ref.t), atol=1e-4)
     np.testing.assert_allclose(got.final_cost.numpy(),
                                np.asarray(ref.final_cost), rtol=1e-4)
+
+
+def test_project_near_so3_keeps_a_near_rotation():
+    """A keyframe rotation that a window BA solved on the card (turned
+    ~90 degrees about the camera's y axis; orthonormal to 1.2e-7): the
+    closed-form SVD projection turns it by 1.6e-4 (R^T R's three
+    eigenvalues meet, and eigh3x3's eigenvectors lose orthogonality), which
+    raised that BA pass's robust cost by ~27 %. project_near_so3 falls back
+    to a Newton-Schulz step there, and gives project_to_so3's result where
+    that is orthonormal."""
+    from gl_slam_tpu_torch.geometry import se3
+    bits = np.array([[3123478326, 965201152, 3212836861],
+                     [962593637, 1065353216, 965196310],
+                     [1065353213, 3110065583, 3123479274]], dtype=np.uint32)
+    R = torch.from_numpy(bits.view(np.float32).copy())
+    eye = torch.eye(3)
+
+    def off(M):
+        return float((M.T @ M - eye).abs().max())
+
+    assert off(R) < 2e-7
+    P = se3.project_to_so3(R)
+    assert off(P) > 1e-4 and float((P - R).abs().max()) > 1e-4
+    Q = se3.project_near_so3(R)
+    assert off(Q) < 1e-7 and float((Q - R).abs().max()) < 2e-7
+    W = se3.exp_so3(torch.from_numpy(
+        np.random.default_rng(5).normal(size=(2000, 3)).astype(np.float32)))
+    P, Q = se3.project_to_so3(W), se3.project_near_so3(W)
+    kept = (P.transpose(-1, -2) @ P - eye).abs().amax((-2, -1)) <= 2e-6
+    assert bool(kept.any()) and bool((~kept).any())
+    assert torch.equal(Q[kept], P[kept])
+    # where the SVD lost orthogonality, the polished rotation stays within
+    # rounding of the exact one
+    assert float((Q[~kept].transpose(-1, -2) @ Q[~kept] - eye).abs().max()) \
+        < 1e-6
+    assert float((Q[~kept] - W[~kept]).abs().max()) < 5e-7

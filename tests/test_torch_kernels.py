@@ -502,7 +502,8 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors():
     t_asg.fused_assignment(*(torch.from_numpy(a) for a in
                              (f0, f1, z0, z1, m0, m1)), 0.125)
     t_nms.detect_keypoints(torch.rand(1, 24, 32), 16, 0.1, 2)
-    assert _build.LAUNCHES == {"attention": 0, "assignment": 0, "nms": 0}
+    assert _build.LAUNCHES == {"attention": 0, "assignment": 0, "nms": 0,
+                               "pose_lm": 0}
 
 
 def test_cuda_wrappers_reject_cpu_tensors():
